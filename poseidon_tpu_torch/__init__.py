@@ -1,0 +1,23 @@
+"""PyTorch/CUDA port of poseidon_tpu (Poseidon's scOT), for NVIDIA Hopper.
+
+Importing this package imports ``torch`` only: no JAX, and nothing of the
+JAX package. The kernels (``ops/``) are built and loaded at first use.
+"""
+
+from .config import MODEL_MAP, ScOTConfig, make_config
+from .hub import from_jax_params, from_pretrained
+from .models.scot import ScOT, apply_pixel_mask, build_model, scot_loss
+from .rollout import autoregressive_rollout
+
+__all__ = [
+    "ScOTConfig",
+    "MODEL_MAP",
+    "make_config",
+    "ScOT",
+    "build_model",
+    "from_pretrained",
+    "from_jax_params",
+    "autoregressive_rollout",
+    "apply_pixel_mask",
+    "scot_loss",
+]

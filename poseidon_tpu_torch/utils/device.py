@@ -1,0 +1,46 @@
+"""The card the port targets, and device selection for its entry points.
+
+``H100`` holds the published peaks of one NVIDIA H100 SXM (NVIDIA's data
+sheet, dense rates, 700 W): they are used only to state a kernel's bound,
+the least time the card could take for the same work.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Union
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class GPUSpec:
+    name: str
+    peak_bf16_flops: float   # dense tensor-core FLOP/s
+    hbm_bandwidth: float     # bytes/s
+    smem_per_block: int      # bytes of shared memory a block may opt into
+    num_sms: int
+
+
+H100 = GPUSpec("NVIDIA H100 SXM", 989e12, 3.35e12, 232_448, 132)
+
+
+def bound_ms(flops: float, nbytes: float, spec: GPUSpec = H100):
+    """(least time in ms, "operations" or "bytes"): the larger of the
+    tensor-core time for ``flops`` and the memory time for ``nbytes``."""
+    t_ops = flops / spec.peak_bf16_flops
+    t_mem = nbytes / spec.hbm_bandwidth
+    if t_ops >= t_mem:
+        return t_ops * 1e3, "operations"
+    return t_mem * 1e3, "bytes"
+
+
+def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller names
+    another. Raises when CUDA is asked for (or left as the default) and
+    absent; nothing falls back to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run on the CPU")
+    return dev
