@@ -23,7 +23,21 @@ Phases, one JSON line each (any failure ends the run with a non-zero exit):
    against the unprofiled forward time, the kernels that take the most);
 5. rollout: autoregressive_rollout with ar_steps=4 on the same model,
    launches counted the same way;
-6. the kernels line; 7. the device line, last.
+6. backward kernels: each backward kernel against its plain version on the
+   card, bf16, at every ScOT-B and ScOT-L batch-32 shape, with the max abs
+   error and relative L2 of every output, kernel / plain / library times
+   (the library time is the autograd backward of the forward's library
+   call), the bound, and two calls on the same inputs compared bit for bit;
+7. train: the ScOT-B train step (forward, pixel mask, grouped L1 loss,
+   backward through the kernels, global-norm clip, grouped AdamW) at batch
+   32 on the weights of phase 3: the kernel path's loss and gradients
+   against the plain path's, every parameter with a finite gradient and the
+   attention and MLP weights of every block with non-zero ones, launches
+   per step (counts reset just before one step, read just after), ten steps
+   on one batch with a falling loss, step time and peak memory;
+8. train profile: torch.profiler over one train step (device busy time
+   against the unprofiled step time, busy time by group, top kernels);
+9. the kernels line; 10. the device line, last.
 
 Exits non-zero without printing results when CUDA is absent.
 """
@@ -46,6 +60,9 @@ ITERS = 20
 ATTN_TOL = 3e-2   # bf16 output, allclose atol = rtol: rounding-order flips only
 MLP_TOL = 3e-2
 MODEL_REL_TOL = 3e-2  # relative L2, kernel path vs plain path, bf16 end to end
+SUM_REL_TOL = 1e-2    # backward outputs summed over rows or windows: relative L2
+GRAD_REL_TOL = 5e-2   # relative L2 of the whole gradient, kernel path vs plain path
+TRAIN_STEPS = 10
 
 
 def emit(obj) -> None:
@@ -141,9 +158,9 @@ def attention_case(attn_mod, n, t, heads, d, nw, window, res, shift, gen):
     return qkv, qb, bm, scale
 
 
-def attention_library_call(qkv, qb, bm, scale, heads):
-    """One PyTorch call computing the same attention on pre-normalised
-    inputs (timed only; the port never calls it)."""
+def attention_library_inputs(qkv, qb, bm, scale, heads):
+    """(qs, kn, v, mask) for SDPA: the queries normalised, scaled and
+    rounded, the keys normalised and rounded, bm as a materialised mask."""
     n, t, c3 = qkv.shape
     c = c3 // 3
     d = c // heads
@@ -153,8 +170,63 @@ def attention_library_call(qkv, qb, bm, scale, heads):
     kn = F.normalize(k.float(), dim=-1).to(qkv.dtype)
     nw = bm.shape[0]
     mask = bm.to(qkv.dtype).unsqueeze(0).expand(n // nw, nw, heads, t, t).reshape(n, heads, t, t)
-    v = v.contiguous()
+    return qs, kn, v.contiguous(), mask
+
+
+def attention_library_call(qkv, qb, bm, scale, heads):
+    """One PyTorch call computing the same attention on pre-normalised
+    inputs (timed only; the port never calls it)."""
+    qs, kn, v, mask = attention_library_inputs(qkv, qb, bm, scale, heads)
     return lambda: F.scaled_dot_product_attention(qs, kn, v, attn_mask=mask, scale=1.0)
+
+
+def attention_library_bwd(qkv, qb, bm, scale, heads, do):
+    """The autograd backward of that call, for the same output cotangent,
+    to its four inputs (timed only)."""
+    leaves = [a.detach().requires_grad_() for a in attention_library_inputs(qkv, qb, bm, scale, heads)]
+    out = F.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3], scale=1.0)
+    n, t, c = do.shape
+    dor = do.reshape(n, t, heads, c // heads).transpose(1, 2)
+    return lambda: torch.autograd.grad(out, leaves, dor, retain_graph=True)
+
+
+def attention_bwd_bound(n, t, heads, d, nw, bound_ms):
+    """Scores once (the probabilities are not stored), dp, dv, dq, dk: 10 T^2 D
+    FLOPs a pair; qkv, do, bm, qb and scale read once, dqkv, dbm, dqb and
+    dscale written once."""
+    c = heads * d
+    flops = 10.0 * n * heads * t * t * d
+    nbytes = (2 * n * t * 3 * c * 2 + n * t * c * 2 + 2 * nw * heads * t * t * 4
+              + 2 * (c + heads) * 4)
+    return bound_ms(flops, nbytes)
+
+
+def mlp_bwd_bound(m, c, f, bound_ms):
+    """u (recomputed), dh, dx, dW1, dW2: 10 M C F FLOPs; x, dy, W1, W2, b1
+    read once, dx, dW1, dW2, db1, db2 written once."""
+    nbytes = 3 * m * c * 2 + 2 * c * f * 2 + f * 4 + 2 * c * f * 4 + (f + c) * 4
+    return bound_ms(10.0 * m * c * f, nbytes)
+
+
+def compare(names, out, ref):
+    """Max abs error and relative L2 of each output, kernel vs plain."""
+    rows = {}
+    for name, a, b in zip(names, out, ref):
+        a, b = a.float(), b.float()
+        rows[name] = {"max_abs_err": float((a - b).abs().max()),
+                      "rel_l2": float((a - b).norm() / b.norm())}
+    return rows
+
+
+def backward_ok(errs, out, ref, again, tol):
+    """The first output (dqkv or dx) allclose atol = rtol = tol, the outputs
+    summed over rows or windows by relative L2, all finite, and a second
+    call bit-identical."""
+    first = (out[0].float() - ref[0].float()).abs() <= tol + tol * ref[0].float().abs()
+    return (bool(first.all())
+            and all(bool(torch.isfinite(o.float()).all()) for o in out)
+            and all(torch.equal(x, y) for x, y in zip(out, again))
+            and all(r["rel_l2"] <= SUM_REL_TOL for r in list(errs.values())[1:]))
 
 
 def attention_bound(n, t, heads, d, nw, bound_ms):
@@ -162,6 +234,16 @@ def attention_bound(n, t, heads, d, nw, bound_ms):
     flops = 4.0 * n * heads * t * t * d
     nbytes = n * t * 3 * c * 2 + c * 4 + nw * heads * t * t * 4 + heads * 4 + n * t * c * 2
     return bound_ms(flops, nbytes)
+
+
+def mlp_case(m, c, f, gen):
+    """x (M, C), w1 (F, C), w2 (C, F) bf16 and b1, b2 fp32 on the card."""
+    x = torch.randn(m, c, generator=gen).to("cuda", torch.bfloat16)
+    w1 = (torch.randn(f, c, generator=gen) / math.sqrt(c)).to("cuda", torch.bfloat16)
+    w2 = (torch.randn(c, f, generator=gen) / math.sqrt(f)).to("cuda", torch.bfloat16)
+    b1 = (0.1 * torch.randn(f, generator=gen)).to("cuda")
+    b2 = (0.1 * torch.randn(c, generator=gen)).to("cuda")
+    return x, w1, b1, w2, b2
 
 
 def mlp_shapes(cfg, batch, mlp_op):
@@ -203,11 +285,7 @@ def phase_kernels(pt, wa, mlp_op, attn_mod, bound_ms, card):
                 raise SystemExit(f"window_attention kernel disagrees at {row['shape']}")
             del qkv, out, ref
         for tag, m, c, f in mlp_shapes(cfg, BATCH, mlp_op):
-            x = torch.randn(m, c, generator=gen).to("cuda", torch.bfloat16)
-            w1 = (torch.randn(f, c, generator=gen) / math.sqrt(c)).to("cuda", torch.bfloat16)
-            w2 = (torch.randn(c, f, generator=gen) / math.sqrt(f)).to("cuda", torch.bfloat16)
-            b1 = (0.1 * torch.randn(f, generator=gen)).to("cuda")
-            b2 = (0.1 * torch.randn(c, generator=gen)).to("cuda")
+            x, w1, b1, w2, b2 = mlp_case(m, c, f, gen)
             out = mlp_op.mlp(x, w1, b1, w2, b2)
             ref = mlp_op.mlp_plain(x, w1, b1, w2, b2)
             torch.cuda.synchronize()
@@ -233,18 +311,90 @@ def phase_kernels(pt, wa, mlp_op, attn_mod, bound_ms, card):
     return results
 
 
+def phase_bwd_kernels(pt, wa, mlp_op, attn_mod, bound_ms, card):
+    gen = torch.Generator().manual_seed(4)
+    results = {"attention": [], "mlp": []}
+    for model_name in ("B", "L"):
+        cfg = pt.make_config(model_name, image_size=128, num_channels=4, num_out_channels=4)
+        for tag, n, t, heads, d, nw, window, res, shift in attention_shapes(cfg, BATCH):
+            qkv, qb, bm, scale = attention_case(attn_mod, n, t, heads, d, nw, window,
+                                                res, shift, gen)
+            do = torch.randn(n, t, heads * d, generator=gen).to("cuda", torch.bfloat16)
+            args = (qkv, qb, bm, scale, heads, do)
+            out = wa.window_attention_bwd(*args)
+            again = wa.window_attention_bwd(*args)
+            ref = wa.window_attention_bwd_plain(*args)
+            torch.cuda.synchronize()
+            errs = compare(("dqkv", "dqb", "dbm", "dscale"), out, ref)
+            ok = backward_ok(errs, out, ref, again, ATTN_TOL)
+            bms, by = attention_bwd_bound(n, t, heads, d, nw, bound_ms)
+            row = {"phase": "bwd_kernel", "kernel": "window_attention_bwd", "model": model_name,
+                   "shape": f"{tag}: windows={n} T={t} H={heads} D={d} nW={nw}",
+                   "groups": wa.bwd_groups(n, nw, heads, t), "errors": errs,
+                   "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+                   "tol": f"dqkv allclose atol=rtol={ATTN_TOL}; dqb, dbm, dscale rel L2 <= "
+                          f"{SUM_REL_TOL}; second call bit-identical", "ok": ok,
+                   "kernel_ms": cuda_ms(lambda: wa.window_attention_bwd(*args)),
+                   "plain_ms": cuda_ms(lambda: wa.window_attention_bwd_plain(*args)),
+                   "library_ms": cuda_ms(attention_library_bwd(*args)),
+                   "bound_ms": bms, "bound_by": by, "card": card}
+            emit(row)
+            results["attention"].append(row)
+            if not ok:
+                raise SystemExit(f"window_attention_bwd kernel disagrees at {row['shape']}")
+            del qkv, do, out, again, ref
+        for tag, m, c, f in mlp_shapes(cfg, BATCH, mlp_op):
+            x, w1, b1, w2, b2 = mlp_case(m, c, f, gen)
+            dy = torch.randn(m, c, generator=gen).to("cuda", torch.bfloat16)
+            args = (x, w1, b1, w2, dy)
+            out = mlp_op.mlp_bwd(*args)
+            again = mlp_op.mlp_bwd(*args)
+            ref = mlp_op.mlp_bwd_plain(*args)
+            torch.cuda.synchronize()
+            errs = compare(("dx", "dw1", "db1", "dw2", "db2"), out, ref)
+            ok = backward_ok(errs, out, ref, again, MLP_TOL)
+            leaves = [a.detach().requires_grad_() for a in (x, w1, b1.to(torch.bfloat16), w2,
+                                                            b2.to(torch.bfloat16))]
+            lib_out = F.linear(F.gelu(F.linear(leaves[0], leaves[1], leaves[2])), leaves[3], leaves[4])
+            bms, by = mlp_bwd_bound(m, c, f, bound_ms)
+            row = {"phase": "bwd_kernel", "kernel": "fused_mlp_bwd", "model": model_name,
+                   "shape": f"{tag}: M={m} C={c} F={f}",
+                   "splits": mlp_op.bwd_splits(m, f, 2 * f * c + f + c), "errors": errs,
+                   "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+                   "tol": f"dx allclose atol=rtol={MLP_TOL}; dw1, db1, dw2, db2 rel L2 <= "
+                          f"{SUM_REL_TOL}; second call bit-identical", "ok": ok,
+                   "kernel_ms": cuda_ms(lambda: mlp_op.mlp_bwd(*args)),
+                   "plain_ms": cuda_ms(lambda: mlp_op.mlp_bwd_plain(*args)),
+                   "library_ms": cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, dy,
+                                                                     retain_graph=True)),
+                   "bound_ms": bms, "bound_by": by, "card": card}
+            emit(row)
+            results["mlp"].append(row)
+            if not ok:
+                raise SystemExit(f"mlp_bwd kernel disagrees at {row['shape']}")
+            del x, dy, out, again, ref, lib_out, leaves
+    return results
+
+
 # ---------------------------------------------------------------------------
 # Model and rollout
 # ---------------------------------------------------------------------------
 
+COUNTERS = (("window_attention_fwd", "window_attention"), ("window_attention_bwd", "window_attention_bwd"),
+            ("fused_mlp_fwd", "mlp"), ("fused_mlp_bwd", "mlp_bwd"))
+
+
+def _wrapper(wa, mlp_op, attr):
+    return getattr(wa if attr.startswith("window") else mlp_op, attr)
+
+
 def reset_counts(wa, mlp_op):
-    wa.window_attention.launches = 0
-    mlp_op.mlp.launches = 0
+    for _, attr in COUNTERS:
+        _wrapper(wa, mlp_op, attr).launches = 0
 
 
 def read_counts(wa, mlp_op):
-    return {"window_attention_fwd": wa.window_attention.launches,
-            "fused_mlp_fwd": mlp_op.mlp.launches}
+    return {name: _wrapper(wa, mlp_op, attr).launches for name, attr in COUNTERS}
 
 
 @torch.no_grad()
@@ -306,7 +456,8 @@ def phase_model(pt, wa, mlp_op, attn_mod, card):
     rel = float((y - y_plain).norm() / y_plain.norm())
     ok = (tuple(y.shape) == (BATCH, 4, 128, 128) and bool(torch.isfinite(y).all())
           and rel <= MODEL_REL_TOL
-          and counts == {"window_attention_fwd": 64, "fused_mlp_fwd": 32})
+          and counts == {"window_attention_fwd": 64, "window_attention_bwd": 0,
+                         "fused_mlp_fwd": 32, "fused_mlp_bwd": 0})
     emit({"phase": "model", "model": "ScOT-B 128x128 c4 bf16 conditioned", "batch": BATCH,
           "weights": "seed 0 init; CPB MLP, logit scales, q/v biases redrawn (seed 3); "
                      "embedding and post-attention norm scales 1",
@@ -322,50 +473,14 @@ def phase_model(pt, wa, mlp_op, attn_mod, card):
 
 
 def phase_profile(model, x, t, forward_ms, card):
-    """Where one kernel-path forward spends device time: torch.profiler over
-    one forward, device busy time (sum of kernel self times), and the
-    kernels that take the most. The idle share is taken against the
-    unprofiled forward time (``forward_ms``): the profiler's own host work
-    stretches the profiled wall time, not the device's."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with torch.no_grad():
-        model(x, t)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
+    """Where one kernel-path forward spends device time (see
+    ``device_time_profile``)."""
+    def forward():
+        with torch.no_grad():
             model(x, t)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
 
-    def dev_us(evt):
-        return getattr(evt, "self_device_time_total", None) or getattr(evt, "self_cuda_time_total", 0)
-
-    # Device-side events only (kernels, memcpy/memset): the CPU ops that
-    # launched them carry the same time again.
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
-    busy = sum(dev_us(e) for e in kernels) / 1e3
-    groups = {}
-    for e in kernels:
-        name = e.key.lower()
-        if "window_attention_fwd_kernel" in name or "mlp_fwd_kernel" in name:
-            g = "port kernels"
-        elif any(k in name for k in ("gemm", "xmma", "cutlass", "sm90", "cublas")):
-            g = "library GEMMs"
-        elif "conv" in name or "cudnn" in name:
-            g = "convolutions"
-        else:
-            g = "elementwise, reductions, copies"
-        groups[g] = groups.get(g, 0.0) + dev_us(e) / 1e3
-    top = sorted(kernels, key=dev_us, reverse=True)[:12]
     emit({"phase": "profile", "what": "one kernel-path ScOT-B b32 forward",
-          "forward_ms": forward_ms, "profiled_wall_ms": wall, "device_busy_ms": busy,
-          "device_idle_share": max(0.0, 1.0 - busy / forward_ms),
-          "device_idle_share_of_profiled_wall": max(0.0, 1.0 - busy / wall),
-          "device_kernels": sum(e.count for e in kernels), "busy_ms_by_group": groups,
-          "top_device": [{"name": e.key[:80], "count": e.count, "ms": dev_us(e) / 1e3}
-                         for e in top], "card": card})
+          "forward_ms": forward_ms, **device_time_profile(forward, forward_ms), "card": card})
 
 
 def phase_rollout(pt, wa, mlp_op, model, x, t, per_forward, card):
@@ -388,33 +503,184 @@ def phase_rollout(pt, wa, mlp_op, model, x, t, per_forward, card):
     return counts
 
 
-def kernels_line(results, per_forward, rollout_counts):
+def train_batch():
+    gen = torch.Generator().manual_seed(5)
+    mask = torch.zeros(BATCH, 4, dtype=torch.bool)
+    mask[:, 3] = True   # as bench.py: the last channel taken from the labels
+    batch = {"pixel_values": torch.randn(BATCH, 4, 128, 128, generator=gen),
+             "time": torch.full((BATCH,), 0.5),
+             "labels": torch.randn(BATCH, 4, 128, 128, generator=gen), "pixel_mask": mask}
+    return {k: v.to("cuda") for k, v in batch.items()}
+
+
+def loss_and_grads(pt, model, batch):
+    """The train step's loss and gradients, without the update."""
+    model.train()
+    model.zero_grad(set_to_none=True)
+    pred = pt.apply_pixel_mask(model(batch["pixel_values"], batch["time"]), batch["labels"],
+                               batch["pixel_mask"])
+    loss = pt.scot_loss(pred, batch["labels"], model.config)
+    loss.backward()
+    return float(loss.detach()), {n: p.grad for n, p in model.named_parameters()}
+
+
+# Per Swin block, the parameters whose gradients the kernels' backward
+# carries: a zero one means the block trained as if they were frozen.
+BLOCK_GRADS = ("attention.self.query.weight", "attention.self.key.weight",
+               "attention.self.value.weight", "attention.self.logit_scale",
+               "attention.self.continuous_position_bias_mlp.0.weight",
+               "attention.self.continuous_position_bias_mlp.2.weight",
+               "intermediate.dense.weight", "output.dense.weight")
+
+
+def phase_train(pt, wa, mlp_op, model, card):
+    """The ScOT-B train step on the card: gradients of the kernel path
+    against the plain path on the same weights and batch, launches per
+    step, then TRAIN_STEPS steps on that batch (lr 1e-4, weight decay 1e-6,
+    cosine over 10,000 steps, clip 5.0, as bench.py) and the step's time."""
+    batch = train_batch()
+    plain = pt.ScOT(model.config.replace(attention_impl="xla"), dtype=torch.bfloat16)
+    plain.load_state_dict(model.state_dict(), strict=True)
+    plain = plain.to("cuda")
+    loss_plain, g_plain = loss_and_grads(pt, plain, batch)
+    vec_plain = torch.cat([g.float().flatten() for g in g_plain.values()])
+    del plain, g_plain
+    reset_counts(wa, mlp_op)
+    loss_kernel, g_kernel = loss_and_grads(pt, model, batch)
+    torch.cuda.synchronize()
+    grad_counts = read_counts(wa, mlp_op)
+    bad = [n for n, g in g_kernel.items() if g is None or not bool(torch.isfinite(g).all())]
+    zero = [n for n, g in g_kernel.items()
+            if n.endswith(BLOCK_GRADS) and g is not None and float(g.abs().max()) == 0.0]
+    blocks_checked = sum(1 for n in g_kernel if n.endswith(BLOCK_GRADS[0]))
+    vec_kernel = torch.cat([g.float().flatten() for g in g_kernel.values()])
+    rel = float((vec_kernel - vec_plain).norm() / vec_plain.norm())
+    del vec_kernel, vec_plain, g_kernel
+    model.zero_grad(set_to_none=True)
+
+    opt, sched = pt.build_optimizer(model, learning_rate=1e-4, total_steps=10_000,
+                                    weight_decay=1e-6, lr_scheduler_type="cosine",
+                                    warmup_ratio=0.0)
+
+    def step():
+        return pt.train_step(model, opt, sched, batch, max_grad_norm=5.0)
+
+    losses, norms = [], []
+    for i in range(TRAIN_STEPS):
+        if i == 0:
+            reset_counts(wa, mlp_op)
+        out = step()
+        losses.append(float(out["loss"]))
+        norms.append(float(out["grad_norm"]))
+        if i == 0:
+            step_counts = read_counts(wa, mlp_op)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = host_ms(step, iters=5)
+    peak = torch.cuda.max_memory_allocated()
+    want = {"window_attention_fwd": 64, "window_attention_bwd": 64, "fused_mlp_fwd": 32,
+            "fused_mlp_bwd": 32}
+    ok = (not bad and not zero and blocks_checked == 64 and rel <= GRAD_REL_TOL
+          and math.isfinite(loss_kernel) and abs(loss_kernel - loss_plain) <= GRAD_REL_TOL * abs(loss_plain)
+          and grad_counts == want and step_counts == want
+          and all(math.isfinite(v) for v in losses) and losses[-1] < losses[0])
+    emit({"phase": "train", "model": "ScOT-B 128x128 c4 bf16 conditioned, fp32 parameters",
+          "batch": BATCH, "weights": "those of the model phase",
+          "loss_kernel_path": loss_kernel, "loss_plain_path": loss_plain,
+          "grad_rel_l2_vs_plain_path": rel, "tol": GRAD_REL_TOL,
+          "params_without_finite_grad": bad, "block_params_with_zero_grad": zero,
+          "blocks_checked": blocks_checked, "launches_per_grad": grad_counts,
+          "launches_per_step": step_counts,
+          "optimizer": "AdamW 4-group, lr 1e-4 cosine/10000, wd 1e-6, clip 5.0",
+          "losses": losses, "grad_norms": norms, "train_step_ms": step_ms,
+          "samples_per_s": BATCH / (step_ms / 1e3), "peak_memory_gib": peak / 2 ** 30,
+          "ok": ok, "card": card})
+    if not ok:
+        raise SystemExit("train phase failed")
+    return step, step_counts, step_ms
+
+
+def device_time_profile(fn, wall_ref_ms):
+    """torch.profiler over one call of ``fn``: device busy time (sum of the
+    device-side kernel and copy times), busy time by group, top kernels, and
+    the idle share against ``wall_ref_ms`` (the unprofiled time: the
+    profiler's own host work stretches the profiled wall time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+
+    def dev_us(evt):
+        return getattr(evt, "self_device_time_total", None) or getattr(evt, "self_cuda_time_total", 0)
+
+    # Device-side events only (kernels, memcpy/memset): the CPU ops that
+    # launched them carry the same time again, and so do the spans that
+    # user annotations (the optimizer's "Optimizer.step#AdamW.step") leave on
+    # the device timeline.
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0
+               and not getattr(e, "is_user_annotation", False)
+               and not e.key.startswith("Optimizer.")]
+    busy = sum(dev_us(e) for e in kernels) / 1e3
+    groups = {}
+    for e in kernels:
+        name = e.key.lower()
+        if any(k in name for k in ("window_attention_fwd_kernel", "mlp_fwd_kernel", "attn_bwd_",
+                                   "mlp_bwd_")):
+            g = "port kernels"
+        elif "multi_tensor_apply" in name:
+            g = "optimizer (multi-tensor AdamW)"
+        elif any(k in name for k in ("gemm", "xmma", "cutlass", "sm90", "cublas")):
+            g = "library GEMMs"
+        elif "conv" in name or "cudnn" in name:
+            g = "convolutions"
+        else:
+            g = "elementwise, reductions, copies"
+        groups[g] = groups.get(g, 0.0) + dev_us(e) / 1e3
+    top = sorted(kernels, key=dev_us, reverse=True)[:12]
+    return {"profiled_wall_ms": wall, "device_busy_ms": busy,
+            "device_idle_share": max(0.0, 1.0 - busy / wall_ref_ms),
+            "device_idle_share_of_profiled_wall": max(0.0, 1.0 - busy / wall),
+            "device_kernels": sum(e.count for e in kernels), "busy_ms_by_group": groups,
+            "top_device": [{"name": e.key[:80], "count": e.count, "ms": dev_us(e) / 1e3}
+                           for e in top]}
+
+
+def phase_train_profile(step, step_ms, card):
+    emit({"phase": "train_profile", "what": "one ScOT-B b32 train step, kernel path",
+          "train_step_ms": step_ms, **device_time_profile(step, step_ms), "card": card})
+
+
+def kernels_line(results, bwd_results, per_forward, rollout_counts, step_counts):
     def pick(rows, shape_prefix):
         return next(r for r in rows if r["model"] == "B" and r["shape"].startswith(shape_prefix))
 
-    attn = pick(results["attention"], "stage0_shifted")
-    mlp = pick(results["mlp"], "stage0")
-    b_attn = [r for r in results["attention"] if r["model"] == "B"]
-    b_mlp = [r for r in results["mlp"] if r["model"] == "B"]
+    def entry(name, source, replaces, rows, shape_prefix, **extra):
+        row = pick(rows, shape_prefix)
+        b_rows = [r for r in rows if r["model"] == "B"]
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces, **extra,
+                "launches": step_counts[name], "forward_launches": per_forward[name],
+                "rollout_launches": rollout_counts[name], "train_step_launches": step_counts[name],
+                "max_abs_err": max(r["max_abs_err"] for r in b_rows),
+                "ms": row["kernel_ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                "shape": "ScOT-B b32 " + row["shape"]}
+
     return {"kernels": [
-        {"name": "window_attention_fwd", "route": "cuda",
-         "source": "poseidon_tpu_torch/csrc/window_attention.cu",
-         "replaces": "poseidon_tpu/ops/window_attention.py:131",
-         "launches": per_forward["window_attention_fwd"],
-         "rollout_launches": rollout_counts["window_attention_fwd"],
-         "max_abs_err": max(r["max_abs_err"] for r in b_attn),
-         "ms": attn["kernel_ms"], "plain_ms": attn["plain_ms"], "bound_ms": attn["bound_ms"],
-         "bound_by": attn["bound_by"], "library_ms": attn["library_ms"],
-         "shape": "ScOT-B b32 " + attn["shape"]},
-        {"name": "fused_mlp_fwd", "route": "cuda", "source": "poseidon_tpu_torch/csrc/mlp.cu",
-         "replaces": "poseidon_tpu/ops/mlp.py:149",
-         "also_replaces": "poseidon_tpu/ops/mlp.py:87",
-         "launches": per_forward["fused_mlp_fwd"],
-         "rollout_launches": rollout_counts["fused_mlp_fwd"],
-         "max_abs_err": max(r["max_abs_err"] for r in b_mlp),
-         "ms": mlp["kernel_ms"], "plain_ms": mlp["plain_ms"], "bound_ms": mlp["bound_ms"],
-         "bound_by": mlp["bound_by"], "library_ms": mlp["library_ms"],
-         "shape": "ScOT-B b32 " + mlp["shape"]},
+        entry("window_attention_fwd", "poseidon_tpu_torch/csrc/window_attention.cu",
+              "poseidon_tpu/ops/window_attention.py:131", results["attention"], "stage0_shifted"),
+        entry("window_attention_bwd", "poseidon_tpu_torch/csrc/window_attention_bwd.cu",
+              "poseidon_tpu/ops/window_attention.py:215", bwd_results["attention"],
+              "stage0_shifted"),
+        entry("fused_mlp_fwd", "poseidon_tpu_torch/csrc/mlp.cu", "poseidon_tpu/ops/mlp.py:149",
+              results["mlp"], "stage0", also_replaces="poseidon_tpu/ops/mlp.py:87"),
+        entry("fused_mlp_bwd", "poseidon_tpu_torch/csrc/mlp_bwd.cu", "poseidon_tpu/ops/mlp.py:157",
+              bwd_results["mlp"], "stage0",
+              also_replaces="poseidon_tpu/ops/mlp.py:114, poseidon_tpu/ops/mlp.py:130"),
     ]}
 
 
@@ -433,7 +699,10 @@ def main() -> int:
     model, x, t, per_forward, forward_ms = phase_model(pt, wa_mod, mlp_op, attn_mod, card)
     phase_profile(model, x, t, forward_ms, card)
     rollout_counts = phase_rollout(pt, wa_mod, mlp_op, model, x, t, per_forward, card)
-    emit(kernels_line(results, per_forward, rollout_counts))
+    bwd_results = phase_bwd_kernels(pt, wa_mod, mlp_op, attn_mod, bound_ms, card)
+    step, step_counts, step_ms = phase_train(pt, wa_mod, mlp_op, model, card)
+    phase_train_profile(step, step_ms, card)
+    emit(kernels_line(results, bwd_results, per_forward, rollout_counts, step_counts))
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -8,6 +8,7 @@ from .config import MODEL_MAP, ScOTConfig, make_config
 from .hub import from_jax_params, from_pretrained
 from .models.scot import ScOT, apply_pixel_mask, build_model, scot_loss
 from .rollout import autoregressive_rollout
+from .training import build_optimizer, train_step
 
 __all__ = [
     "ScOTConfig",
@@ -20,4 +21,6 @@ __all__ = [
     "autoregressive_rollout",
     "apply_pixel_mask",
     "scot_loss",
+    "build_optimizer",
+    "train_step",
 ]

@@ -25,6 +25,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.window_attention import window_attention
+from .layers import dropout
 
 # ---------------------------------------------------------------------------
 # Static geometry (numpy; cached per window configuration)
@@ -128,12 +129,17 @@ class WindowAttention(nn.Module):
 
     Input (num_windows_total, T, C), T = window_size**2, windows of one image
     contiguous. ``mask`` is the additive (num_windows_per_image, T, T) shift
-    mask (not yet doubled), or None for unshifted blocks.
+    mask (not yet doubled), or None for unshifted blocks. In train mode the
+    attention probabilities and the output projection take dropout
+    (``attn_drop``, ``proj_drop``, masks from the caller's generator); the
+    kernel path has no probabilities to drop, so while attention dropout is
+    active the module takes the plain path, as the JAX module does.
     """
 
     def __init__(self, dim: int, num_heads: int, window_size: int,
                  qkv_bias: bool = True, dtype: torch.dtype = torch.float32,
-                 impl: str = "xla", score_dtype: torch.dtype = torch.float32):
+                 impl: str = "xla", score_dtype: torch.dtype = torch.float32,
+                 attn_drop: float = 0.0, proj_drop: float = 0.0):
         super().__init__()
         self.dim = dim
         self.num_heads = num_heads
@@ -142,6 +148,8 @@ class WindowAttention(nn.Module):
         self.dtype = dtype
         self.impl = impl
         self.score_dtype = score_dtype
+        self.attn_drop = attn_drop
+        self.proj_drop = proj_drop
         self.self = _SelfAttention(dim, num_heads, window_size, qkv_bias)
         self.output = _SelfOutput(dim)
 
@@ -158,10 +166,17 @@ class WindowAttention(nn.Module):
         """(H,) fp32 exp(min(logit_scale, log 100))."""
         return torch.exp(torch.clamp(self.self.logit_scale, max=math.log(1.0 / 0.01))).reshape(-1)
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
-        if self.impl == "pallas":
-            return self._forward_kernel(x, mask)
-        return self._forward_plain(x, mask)
+    def uses_kernel(self) -> bool:
+        """The kernel path, unless attention dropout is active."""
+        return self.impl == "pallas" and not (self.training and self.attn_drop > 0.0)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor],
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if self.uses_kernel():
+            out = self._forward_kernel(x, mask)
+        else:
+            out = self._forward_plain(x, mask, generator)
+        return dropout(out, self.proj_drop, self.training, generator)
 
     def _forward_kernel(self, x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
         """The kernel path: one fused QKV GEMM, the attention kernel reading
@@ -183,7 +198,8 @@ class WindowAttention(nn.Module):
             proj_bias = proj_bias + F.linear(s.value.bias, wp)
         return out @ wp.to(dt).t() + proj_bias.to(dt)
 
-    def _forward_plain(self, x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    def _forward_plain(self, x: torch.Tensor, mask: Optional[torch.Tensor],
+                       generator: Optional[torch.Generator] = None) -> torch.Tensor:
         s, dt, sd = self.self, self.dtype, self.score_dtype
         bnw, t, c = x.shape
         heads, hd = self.num_heads, self.dim // self.num_heads
@@ -206,6 +222,7 @@ class WindowAttention(nn.Module):
             nw = mask.shape[0]
             scores = scores.reshape(bnw // nw, nw, heads, t, t) + 2.0 * mask.to(sd)[None, :, None]
             scores = scores.reshape(bnw, heads, t, t)
-        probs = torch.softmax(scores, dim=-1).to(v.dtype)
+        probs = torch.softmax(scores, dim=-1)
+        probs = dropout(probs, self.attn_drop, self.training, generator).to(v.dtype)
         out = torch.einsum("bhts,bshd->bthd", probs, v).reshape(bnw, t, c)
         return out @ self.output.dense.weight.to(dt).t() + self.output.dense.bias.to(dt)

@@ -41,6 +41,22 @@ def _layer_stats(x: torch.Tensor, eps: float) -> torch.Tensor:
     return (xf - mean) * torch.rsqrt(var + eps)
 
 
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Element dropout with flax ``nn.Dropout`` semantics: each element kept
+    with probability 1 - rate and scaled by 1/(1 - rate). Active only in
+    train mode with rate > 0. The mask is drawn from ``generator`` on the
+    generator's device (x's device when None)."""
+    if rate == 0.0 or not training:
+        return x
+    if rate == 1.0:
+        return torch.zeros_like(x)
+    keep = 1.0 - rate
+    dev = x.device if generator is None else generator.device
+    mask = (torch.rand(x.shape, generator=generator, device=dev) < keep).to(x.device)
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
 class DropPath(nn.Module):
     """Per-sample stochastic depth, scaled by 1/keep_prob. Active only in
     train mode; the caller passes the generator that draws the mask."""

@@ -48,6 +48,7 @@ from .layers import (
     PlainLayerNorm,
     ResNetBlock,
     dense,
+    dropout,
     gelu_exact,
     make_norm,
 )
@@ -113,7 +114,9 @@ class SwinBlock(nn.Module):
         self.attention = WindowAttention(
             dim, num_heads, self.window, qkv_bias=cfg.qkv_bias, dtype=dtype,
             impl=cfg.attention_impl,
-            score_dtype=torch.bfloat16 if cfg.score_dtype == "bfloat16" else torch.float32)
+            score_dtype=torch.bfloat16 if cfg.score_dtype == "bfloat16" else torch.float32,
+            attn_drop=cfg.attention_probs_dropout_prob,
+            proj_drop=cfg.attention_probs_dropout_prob)
         self.layernorm_before = make_norm(cfg.use_conditioning, dim, cfg.layer_norm_eps, dtype)
         f = int(cfg.mlp_ratio * dim)
         self.intermediate = _Dense(dim, f)
@@ -134,7 +137,7 @@ class SwinBlock(nn.Module):
             hs = nn.functional.pad(hs, (0, 0, 0, pad, 0, pad))
         if shift:
             hs = torch.roll(hs, (-shift, -shift), dims=(1, 2))
-        attn = self.attention(window_partition(hs, win), self.attn_mask)
+        attn = self.attention(window_partition(hs, win), self.attn_mask, generator)
         hs = window_reverse(attn, win, h + pad, w + pad)
         if shift:
             hs = torch.roll(hs, (shift, shift), dims=(1, 2))
@@ -149,6 +152,7 @@ class SwinBlock(nn.Module):
             mlp = fused_mlp(x.to(dt), w1.to(dt), b1, w2.to(dt), b2)
         else:
             mlp = dense(gelu_exact(dense(x.to(dt), w1, b1)), w2, b2)
+        mlp = dropout(mlp, cfg.hidden_dropout_prob, self.training, generator)
         mlp = self.layernorm_after(mlp, time)
         return x + self.drop_path(mlp, generator)
 
@@ -320,6 +324,7 @@ class ScOT(nn.Module):
             tokens = tokens * (1.0 - m) + emb.mask_token.to(tokens.dtype) * m
         if cfg.use_absolute_embeddings:
             tokens = tokens + emb.position_embeddings.to(tokens.dtype)
+        tokens = dropout(tokens, cfg.hidden_dropout_prob, self.training, generator)
 
         skips = self.encoder(tokens, time, generator)
         processed = []

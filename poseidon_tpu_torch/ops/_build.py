@@ -18,7 +18,7 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Sequence
 
-SOURCES = ("window_attention", "mlp")
+SOURCES = ("window_attention", "window_attention_bwd", "mlp", "mlp_bwd")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,5 +1,6 @@
-"""Fused block MLP forward: the Hopper kernel's wrapper, its plain PyTorch
-version, and the rule that picks it.
+"""Fused block MLP, forward and backward: the Hopper kernels' wrappers,
+their plain PyTorch versions, the autograd Function that joins them, and
+the rule that picks them.
 
     out = cast(cast(gelu(x @ w1^T + b1)) @ w2^T + b2)
 
@@ -9,8 +10,13 @@ with fp32 accumulation, exact (erf) GELU on the fp32 pre-activation, and
 rounding points. Weights are in PyTorch Linear layout: ``w1`` (F, C), ``w2``
 (C, F), biases fp32.
 
+The backward (:func:`mlp_bwd`) recomputes the hidden state, as the TPU
+kernels ``_bwd_kernel_dm``, ``_bwd_kernel_fused`` and ``_bwd_kernel_emit``
+do, and returns (dx in x's dtype, dw1, db1, dw2, db2 fp32, summed over all
+rows).
+
 A CPU tensor goes to the plain version. A CUDA tensor goes to the kernel
-(``csrc/mlp.cu``) or raises.
+(``csrc/mlp.cu``, ``csrc/mlp_bwd.cu``) or raises.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from ..models.layers import dense, gelu_exact
 from . import _build
 
 KERNEL_WIDTHS = (96, 192, 384)
+_INV_SQRT2PI = 0.3989422804014327
 
 
 def mlp_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
@@ -34,23 +41,26 @@ def mlp_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     return (g.float() @ w2.to(cdt).float().t() + b2.float()).to(cdt)
 
 
-def _check(x2, w1, b1, w2, b2):
+def _check(x2, w1, b1, w2, b2=None):
+    """Checks the kernels' operands (b2 is not an operand of the backward)."""
     if x2.dtype == torch.float32:
         raise NotImplementedError(
             "mlp kernel takes bf16 operands; fp32 kernel operands are ROADMAP "
             "queue 2 item 'fp32 operands in the kernels'")
     m, c = x2.shape
     f = w1.shape[0]
+    biases = (b1,) if b2 is None else (b1, b2)
     if x2.dtype != torch.bfloat16 or w1.dtype != torch.bfloat16 or w2.dtype != torch.bfloat16:
         raise TypeError("mlp kernel: x, w1 and w2 must be bf16")
-    if b1.dtype != torch.float32 or b2.dtype != torch.float32:
+    if any(b.dtype != torch.float32 for b in biases):
         raise TypeError("mlp kernel: b1 and b2 must be fp32")
     if c not in KERNEL_WIDTHS or f % 64:
         raise ValueError(f"mlp kernel takes C in {KERNEL_WIDTHS} and F % 64 == 0, "
                          f"got C={c}, F={f}")
-    if w1.shape != (f, c) or w2.shape != (c, f) or b1.shape != (f,) or b2.shape != (c,):
+    if w1.shape != (f, c) or w2.shape != (c, f) or b1.shape != (f,) or \
+            (b2 is not None and b2.shape != (c,)):
         raise ValueError("mlp kernel: w1 (F, C), b1 (F,), w2 (C, F), b2 (C,) expected")
-    for name, a in (("x", x2), ("w1", w1), ("b1", b1), ("w2", w2), ("b2", b2)):
+    for name, a in zip(("x", "w1", "w2", "b1", "b2"), (x2, w1, w2) + biases):
         if a.device != x2.device:
             raise ValueError(f"{name} is on {a.device}, x on {x2.device}")
         if not a.is_contiguous():
@@ -60,9 +70,8 @@ def _check(x2, w1, b1, w2, b2):
     return m, c, f
 
 
-def mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
-        w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
-    """The fused MLP over the last axis of x (any leading shape)."""
+def _forward(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+             w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return mlp_plain(x, w1, b1, w2, b2)
     if x.device.type != "cuda":
@@ -81,10 +90,96 @@ def mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     return out.reshape(*lead, c)
 
 
+def mlp_bwd_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                  w2: torch.Tensor, dy: torch.Tensor):
+    """Plain PyTorch version of the backward kernel, with the rounding
+    points of ``_recompute`` / ``_bwd_kernel_dm``: du and g rounded to x's
+    dtype before the weight products, fp32 accumulation, db1 from the
+    unrounded du."""
+    cdt = x.dtype
+    c = x.shape[-1]
+    xf = x.reshape(-1, c).float()
+    dyf = dy.reshape(-1, c).float()
+    w1f, w2f = w1.to(cdt).float(), w2.to(cdt).float()
+    u = xf @ w1f.t() + b1.float()
+    dgelu = 0.5 * (1.0 + torch.erf(u * 0.7071067811865476)) + u * torch.exp(-0.5 * u * u) * _INV_SQRT2PI
+    du = (dyf @ w2f) * dgelu
+    dub = du.to(cdt).float()
+    g = gelu_exact(u).to(cdt).float()
+    dx = (dub @ w1f).to(cdt).reshape(x.shape)
+    return dx, dub.t() @ xf, du.sum(dim=0), dyf.t() @ g, dyf.sum(dim=0)
+
+
+def bwd_splits(m: int, f: int, out_floats: int) -> int:
+    """Row splits R of the backward kernel's weight-gradient blocks: each
+    writes one fp32 partial of (dw1, dw2, db1, db2); enough splits to fill
+    the card, the partials kept within 64 MiB."""
+    r = -(-_BWD_TARGET_CTAS // max(1, f // 64))
+    return max(1, min(-(-m // 64), r, (64 << 20) // (4 * out_floats)))
+
+
+def mlp_bwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+            dy: torch.Tensor):
+    """The backward of :func:`mlp` for the output cotangent ``dy``:
+    (dx, dw1, db1, dw2, db2); see the module docstring."""
+    if x.device.type == "cpu":
+        return mlp_bwd_plain(x, w1, b1, w2, dy)
+    if x.device.type != "cuda":
+        raise ValueError(f"mlp_bwd: unsupported device {x.device}")
+    x2 = x.reshape(-1, x.shape[-1])
+    dy2 = dy.reshape(-1, dy.shape[-1])
+    m, c, f = _check(x2, w1, b1, w2)
+    if dy2.shape != x2.shape or dy2.dtype != x2.dtype or not dy2.is_contiguous() \
+            or dy2.data_ptr() % 16:
+        raise ValueError("dy must be contiguous, 16-byte aligned, and of x's shape and dtype")
+    n_out = 2 * f * c + f + c
+    r = bwd_splits(m, f, n_out)
+    dx = torch.empty_like(x2)
+    grads = torch.empty(n_out, dtype=torch.float32, device=x.device)
+    part = torch.empty((r, n_out), dtype=torch.float32, device=x.device)
+    lib = _build.load("mlp_bwd", _BWD_SIGNATURES)
+    err = lib.mlp_bwd(x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                      dy2.data_ptr(), dx.data_ptr(), grads.data_ptr(), part.data_ptr(),
+                      m, c, f, r, torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"mlp_bwd kernel launch failed: {_build.error_string(lib, err)}")
+    mlp_bwd.launches += 1
+    dw1, dw2, db1, db2 = grads.split([f * c, c * f, f, c])
+    return dx.reshape(x.shape), dw1.view(f, c), db1, dw2.view(c, f), db2
+
+
+class MlpFn(torch.autograd.Function):
+    """Forward through the forward kernel (or its plain version on the CPU),
+    backward through the backward kernel (or its plain version): the
+    ``jax.custom_vjp`` of ``_mlp_core_dm`` / ``_mlp_core``."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2):
+        ctx.save_for_backward(x, w1, b1, w2)
+        return _forward(x, w1, b1, w2, b2)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w1, b1, w2 = ctx.saved_tensors
+        return mlp_bwd(x, w1, b1, w2, dy.contiguous())
+
+
+def mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+        w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """The fused MLP over the last axis of x (any leading shape), with its
+    backward. ``mlp.launches`` counts forward kernel launches,
+    ``mlp_bwd.launches`` backward ones."""
+    return MlpFn.apply(x, w1, b1, w2, b2)
+
+
 mlp.launches = 0
+mlp_bwd.launches = 0
+_BWD_TARGET_CTAS = 4 * 132
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # x, w1, b1, w2, b2, out, M, C, F, stream
 _SIGNATURES = {"mlp_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P)}
+# x, w1, b1, w2, dy, dx, grads, partials, M, C, F, R, stream
+_BWD_SIGNATURES = {"mlp_bwd": (_P,) * 8 + (_I,) * 4 + (_P,)}
 
 
 def use_mlp_kernel(c: int, tokens_per_image: int) -> bool:
