@@ -37,7 +37,21 @@ Phases, one JSON line each (any failure ends the run with a non-zero exit):
    on one batch with a falling loss, step time and peak memory;
 8. train profile: torch.profiler over one train step (device busy time
    against the unprofiled step time, busy time by group, top kernels);
-9. the kernels line; 10. the device line, last.
+9. fused-tail kernels: the block tail's forward and backward kernels (MLP +
+   conditional LayerNorm + residual) against their plain versions at every
+   ScOT-B and ScOT-L batch-32 stage they serve, with a per-image scale and
+   shift that differ by image and channel, times and bounds as in 2 and 6;
+10. separate-q/k/v attention: the op ``poseidon_tpu_torch.ops.
+   fused_window_attention`` forward and backward through autograd at every
+   ScOT-B and ScOT-L attention shape (nthd) and at one shape in each other
+   layout, counts reset just before and read just after; then its two
+   kernels against their plain versions at each shape, with times;
+11. fused-tail model, train and train profile: phases 3, 7 and 8 under
+   ``fused_block_tail=True`` (the post-MLP norm scales set to 1 as well, and
+   its weights in the non-zero-gradient check), launches 64 attention and 32
+   tail kernels per forward, 64/64/32/32 per step;
+12. the unfused and fused-tail forward and train step timed in turns;
+13. the kernels line; 14. the device line, last.
 
 Exits non-zero without printing results when CUDA is absent.
 """
@@ -158,35 +172,40 @@ def attention_case(attn_mod, n, t, heads, d, nw, window, res, shift, gen):
     return qkv, qb, bm, scale
 
 
-def attention_library_inputs(qkv, qb, bm, scale, heads):
-    """(qs, kn, v, mask) for SDPA: the queries normalised, scaled and
-    rounded, the keys normalised and rounded, bm as a materialised mask."""
+def split_qkv(qkv, qb, heads):
+    """(N, T, H, D) q (with the q-bias added, rounded), k, v of a packed
+    (N, T, 3C) qkv."""
     n, t, c3 = qkv.shape
-    c = c3 // 3
-    d = c // heads
-    q, k, v = qkv.reshape(n, t, 3, heads, d).permute(2, 0, 3, 1, 4).unbind(0)
-    q = q + qb.reshape(heads, 1, d).to(q.dtype)
-    qs = (F.normalize(q.float(), dim=-1) * scale.reshape(heads, 1, 1)).to(qkv.dtype)
-    kn = F.normalize(k.float(), dim=-1).to(qkv.dtype)
+    q, k, v = qkv.reshape(n, t, 3, heads, c3 // (3 * heads)).unbind(2)
+    return q + qb.reshape(heads, -1).to(q.dtype), k, v
+
+
+def attention_library_inputs(q, k, v, bm, scale):
+    """(qs, kn, v, mask) for SDPA from (N, T, H, D) q, k, v: the queries
+    normalised, scaled and rounded, the keys normalised and rounded, bm as a
+    materialised mask."""
+    n, t, heads, _ = q.shape
+    q, k, v = (a.transpose(1, 2) for a in (q, k, v))
+    qs = (F.normalize(q.float(), dim=-1) * scale.reshape(heads, 1, 1)).to(q.dtype)
+    kn = F.normalize(k.float(), dim=-1).to(k.dtype)
     nw = bm.shape[0]
-    mask = bm.to(qkv.dtype).unsqueeze(0).expand(n // nw, nw, heads, t, t).reshape(n, heads, t, t)
+    mask = bm.to(q.dtype).unsqueeze(0).expand(n // nw, nw, heads, t, t).reshape(n, heads, t, t)
     return qs, kn, v.contiguous(), mask
 
 
-def attention_library_call(qkv, qb, bm, scale, heads):
+def attention_library_call(q, k, v, bm, scale):
     """One PyTorch call computing the same attention on pre-normalised
     inputs (timed only; the port never calls it)."""
-    qs, kn, v, mask = attention_library_inputs(qkv, qb, bm, scale, heads)
+    qs, kn, v, mask = attention_library_inputs(q, k, v, bm, scale)
     return lambda: F.scaled_dot_product_attention(qs, kn, v, attn_mask=mask, scale=1.0)
 
 
-def attention_library_bwd(qkv, qb, bm, scale, heads, do):
+def attention_library_bwd(q, k, v, bm, scale, do):
     """The autograd backward of that call, for the same output cotangent,
     to its four inputs (timed only)."""
-    leaves = [a.detach().requires_grad_() for a in attention_library_inputs(qkv, qb, bm, scale, heads)]
+    leaves = [a.detach().requires_grad_() for a in attention_library_inputs(q, k, v, bm, scale)]
     out = F.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3], scale=1.0)
-    n, t, c = do.shape
-    dor = do.reshape(n, t, heads, c // heads).transpose(1, 2)
+    dor = do.reshape(q.shape).transpose(1, 2)
     return lambda: torch.autograd.grad(out, leaves, dor, retain_graph=True)
 
 
@@ -218,15 +237,15 @@ def compare(names, out, ref):
     return rows
 
 
-def backward_ok(errs, out, ref, again, tol):
-    """The first output (dqkv or dx) allclose atol = rtol = tol, the outputs
-    summed over rows or windows by relative L2, all finite, and a second
-    call bit-identical."""
-    first = (out[0].float() - ref[0].float()).abs() <= tol + tol * ref[0].float().abs()
-    return (bool(first.all())
+def backward_ok(errs, out, ref, again, tol, close=1):
+    """The first ``close`` outputs (dqkv, dx, or dq, dk, dv) allclose
+    atol = rtol = tol, the outputs summed over rows or windows by relative
+    L2, all finite, and a second call bit-identical."""
+    return (all(bool(((o.float() - r.float()).abs() <= tol + tol * r.float().abs()).all())
+                for o, r in zip(out[:close], ref[:close]))
             and all(bool(torch.isfinite(o.float()).all()) for o in out)
             and all(torch.equal(x, y) for x, y in zip(out, again))
-            and all(r["rel_l2"] <= SUM_REL_TOL for r in list(errs.values())[1:]))
+            and all(r["rel_l2"] <= SUM_REL_TOL for r in list(errs.values())[close:]))
 
 
 def attention_bound(n, t, heads, d, nw, bound_ms):
@@ -277,7 +296,8 @@ def phase_kernels(pt, wa, mlp_op, attn_mod, bound_ms, card):
                    "ok": ok,
                    "kernel_ms": cuda_ms(lambda: wa.window_attention(qkv, qb, bm, scale, heads)),
                    "plain_ms": cuda_ms(lambda: wa.window_attention_plain(qkv, qb, bm, scale, heads)),
-                   "library_ms": cuda_ms(attention_library_call(qkv, qb, bm, scale, heads)),
+                   "library_ms": cuda_ms(attention_library_call(*split_qkv(qkv, qb, heads),
+                                                                bm, scale)),
                    "bound_ms": bms, "bound_by": by, "card": card}
             emit(row)
             results["attention"].append(row)
@@ -336,7 +356,8 @@ def phase_bwd_kernels(pt, wa, mlp_op, attn_mod, bound_ms, card):
                           f"{SUM_REL_TOL}; second call bit-identical", "ok": ok,
                    "kernel_ms": cuda_ms(lambda: wa.window_attention_bwd(*args)),
                    "plain_ms": cuda_ms(lambda: wa.window_attention_bwd_plain(*args)),
-                   "library_ms": cuda_ms(attention_library_bwd(*args)),
+                   "library_ms": cuda_ms(attention_library_bwd(*split_qkv(qkv, qb, heads),
+                                                               bm, scale, do)),
                    "bound_ms": bms, "bound_by": by, "card": card}
             emit(row)
             results["attention"].append(row)
@@ -377,15 +398,262 @@ def phase_bwd_kernels(pt, wa, mlp_op, attn_mod, bound_ms, card):
 
 
 # ---------------------------------------------------------------------------
+# The fused block tail's kernels, and the separate-q/k/v attention op
+# ---------------------------------------------------------------------------
+
+def cln_shapes(cfg, batch, mlp_op):
+    """(tag, B, L, C, F) of every stage whose blocks take the fused tail."""
+    out = []
+    for i in range(cfg.num_stages):
+        c, l = cfg.stage_dim(i), cfg.stage_resolution(i) ** 2
+        if mlp_op.use_fused_tail(c, l):
+            out.append((f"stage{i}", batch, l, c, int(cfg.mlp_ratio * c)))
+    return out
+
+
+def cln_case(b, l, c, f, gen):
+    """mlp_case's operands with x as (B, L, C), and a per-image scale and
+    shift that differ by image and channel (a tile that read another image's
+    row would disagree)."""
+    x, w1, b1, w2, b2 = mlp_case(b * l, c, f, gen)
+    scale = (1.0 + 0.5 * torch.randn(b, c, generator=gen)).to("cuda")
+    shift = (0.5 * torch.randn(b, c, generator=gen)).to("cuda")
+    return x.view(b, l, c), w1, b1, w2, b2, scale, shift
+
+
+def cln_library_inputs(x, w1, b1, w2, b2, scale, shift):
+    dt = x.dtype
+    return x, w1, b1.to(dt), w2, b2.to(dt), scale.to(dt)[:, None], shift.to(dt)[:, None]
+
+
+def cln_library_call(x, w1, b1, w2, b2, s, sh, eps):
+    """PyTorch's calls for the fused tail: F.linear -> F.gelu -> F.linear ->
+    F.layer_norm, the per-image affine and the residual (timed only)."""
+    o = F.linear(F.gelu(F.linear(x, w1, b1)), w2, b2)
+    return x + F.layer_norm(o, (o.shape[-1],), eps=eps) * s + sh
+
+
+def cln_bound(b, l, c, f, bound_ms, backward=False):
+    """Forward: 4 M C F FLOPs; x and W1, W2 (bf16), b1, b2, scale, shift
+    read once, out written once. Backward: 12 M C F FLOPs (o recomputed,
+    then u, dh, dx, dW1, dW2); x, dy, W1, W2, b1, b2, scale read once, dx
+    and dW1, dW2, db1, db2, dscale, dshift (fp32) written once."""
+    m = b * l
+    if not backward:
+        return bound_ms(4.0 * m * c * f, 2 * m * c * 2 + 2 * c * f * 2 + (f + c + 2 * b * c) * 4)
+    return bound_ms(12.0 * m * c * f, 3 * m * c * 2 + 2 * c * f * 2 + 2 * c * f * 4
+                    + (f + c + b * c) * 4 + (f + c + 2 * b * c) * 4)
+
+
+def phase_cln_kernels(pt, mlp_op, bound_ms, card):
+    """The fused tail's forward and backward kernels against their plain
+    versions at every ScOT-B and ScOT-L batch-32 stage they serve."""
+    gen = torch.Generator().manual_seed(7)
+    eps = 1e-5
+    results = {"fwd": [], "bwd": []}
+    for model_name in ("B", "L"):
+        cfg = pt.make_config(model_name, image_size=128, num_channels=4, num_out_channels=4)
+        for tag, b, l, c, f in cln_shapes(cfg, BATCH, mlp_op):
+            x, w1, b1, w2, b2, scale, shift = cln_case(b, l, c, f, gen)
+            dy = torch.randn(b, l, c, generator=gen).to("cuda", torch.bfloat16)
+            shape = f"{tag}: B={b} L={l} C={c} F={f}"
+            fargs = (x, w1, b1, w2, b2, scale, shift, eps)
+            out = mlp_op.mlp_cln(*fargs)
+            ref = mlp_op.mlp_cln_plain(*fargs)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs()
+            ok = bool(torch.isfinite(out.float()).all()) and bool(
+                (err <= MLP_TOL + MLP_TOL * ref.float().abs()).all())
+            lib_in = cln_library_inputs(x, w1, b1, w2, b2, scale, shift)
+            bms, by = cln_bound(b, l, c, f, bound_ms)
+            row = {"phase": "cln_kernel", "kernel": "mlp_cln_fwd", "model": model_name,
+                   "shape": shape, "max_abs_err": float(err.max()),
+                   "tol": f"allclose atol=rtol={MLP_TOL}", "ok": ok,
+                   "kernel_ms": cuda_ms(lambda: mlp_op.mlp_cln(*fargs)),
+                   "plain_ms": cuda_ms(lambda: mlp_op.mlp_cln_plain(*fargs)),
+                   "library_ms": cuda_ms(lambda: cln_library_call(*lib_in, eps)),
+                   "bound_ms": bms, "bound_by": by, "card": card}
+            emit(row)
+            results["fwd"].append(row)
+            if not ok:
+                raise SystemExit(f"mlp_cln kernel disagrees at {shape}")
+            bargs = (x, w1, b1, w2, b2, scale, eps, dy)
+            out = mlp_op.mlp_cln_bwd(*bargs)
+            again = mlp_op.mlp_cln_bwd(*bargs)
+            ref = mlp_op.mlp_cln_bwd_plain(*bargs)
+            torch.cuda.synchronize()
+            errs = compare(("dx", "dw1", "db1", "dw2", "db2", "dscale", "dshift"), out, ref)
+            ok = backward_ok(errs, out, ref, again, MLP_TOL)
+            leaves = [a.detach().requires_grad_() for a in lib_in]
+            lib_out = cln_library_call(*leaves, eps)
+            bms, by = cln_bound(b, l, c, f, bound_ms, backward=True)
+            row = {"phase": "cln_kernel", "kernel": "mlp_cln_bwd", "model": model_name,
+                   "shape": shape, "splits": mlp_op.bwd_splits(b * l, f, 2 * f * c + f + c),
+                   "errors": errs, "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+                   "tol": f"dx allclose atol=rtol={MLP_TOL}; the weight, bias, scale and "
+                          f"shift gradients rel L2 <= {SUM_REL_TOL}; second call "
+                          f"bit-identical", "ok": ok,
+                   "kernel_ms": cuda_ms(lambda: mlp_op.mlp_cln_bwd(*bargs)),
+                   "plain_ms": cuda_ms(lambda: mlp_op.mlp_cln_bwd_plain(*bargs)),
+                   "library_ms": cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, dy,
+                                                                     retain_graph=True)),
+                   "bound_ms": bms, "bound_by": by, "card": card}
+            emit(row)
+            results["bwd"].append(row)
+            if not ok:
+                raise SystemExit(f"mlp_cln_bwd kernel disagrees at {shape}")
+            del x, dy, out, again, ref, lib_out, leaves, lib_in
+    return results
+
+
+def op_case(attn_mod, n, t, heads, d, nw, window, res, shift, gen):
+    """Separate (N, T, H, D) bf16 q, k, v and output cotangent, the (H, T, T)
+    position bias, the doubled (nW, T, T) shift mask (zeros, nW = 1, when
+    unshifted) and the logit scales, on the card."""
+    dev = "cuda"
+    q, k, v, do = (torch.randn(n, t, heads, d, generator=gen).to(dev, torch.bfloat16)
+                   for _ in range(4))
+    bias = (16.0 * torch.sigmoid(torch.randn(heads, t, t, generator=gen))).to(dev)
+    if nw > 1:
+        mask = 2.0 * torch.from_numpy(attn_mod.shifted_window_mask(res, res, window, shift)).to(dev)
+    else:
+        mask = torch.zeros(1, t, t, device=dev)
+    scale = torch.exp(torch.log(torch.tensor(10.0)) + 0.2 * torch.randn(heads, generator=gen)).to(dev)
+    return q, k, v, do, bias, mask, scale
+
+
+def to_layout(x, layout, pack):
+    """(N, T, H, D) into one of the op's layouts; ``pack`` heads packed per
+    row for nhdt_packed."""
+    if layout == "nthd":
+        return x
+    if layout == "nhtd":
+        return x.permute(0, 2, 1, 3).contiguous()
+    if layout == "nhdt":
+        return x.permute(0, 2, 3, 1).contiguous()
+    n, t, h, d = x.shape
+    return (x.reshape(n, t, h // pack, pack, d).permute(0, 2, 4, 3, 1)
+            .reshape(n, h // pack, d, pack * t).contiguous())
+
+
+def phase_fused_attention(pt, wa, mlp_op, attn_mod, bound_ms, card):
+    """The separate-q/k/v op ``poseidon_tpu_torch.ops.fused_window_attention``.
+    First its path: the counts set to 0, then forward and backward through
+    the op (autograd) at every ScOT-B and ScOT-L batch-32 attention shape in
+    the nthd layout and at ScOT-B stage 2 in each other layout (head packing
+    P = 4 there, as the JAX op packs), outputs against the plain version, the
+    counts read. Then each kernel against its plain version at each nthd
+    shape, with times."""
+    gen = torch.Generator().manual_seed(8)
+    cases = []
+    for model_name in ("B", "L"):
+        cfg = pt.make_config(model_name, image_size=128, num_channels=4, num_out_channels=4)
+        for tag, *geo in attention_shapes(cfg, BATCH):
+            cases.append((model_name, tag, "nthd", geo))
+            if model_name == "B" and tag == "stage2":
+                cases += [(model_name, tag, lay, geo) for lay in ("nhtd", "nhdt", "nhdt_packed")]
+    reset_counts(wa, mlp_op)
+    path_rows = []
+    for model_name, tag, layout, (n, t, heads, d, nw, window, res, shift) in cases:
+        q, k, v, do, bias, mask, scale = op_case(attn_mod, n, t, heads, d, nw, window, res,
+                                                 shift, gen)
+        pack = 4 if layout == "nhdt_packed" else 1
+        leaves = [to_layout(a, layout, pack).detach().requires_grad_() for a in (q, k, v)]
+        leaves += [a.clone().requires_grad_() for a in (bias, mask, scale)]
+        out = pt.ops.fused_window_attention(*leaves, layout=layout,
+                                            windows_per_image=(res // window) ** 2)
+        out.backward(to_layout(do, layout, pack))
+        ref = to_layout(wa.attention_plain(q, k, v, (bias[None] + mask[:, None]).contiguous(),
+                                           scale), layout, pack)
+        torch.cuda.synchronize()
+        err = (out.detach().float() - ref.float()).abs()
+        ok = (out.shape == leaves[0].shape and bool(torch.isfinite(out.float()).all())
+              and bool((err <= ATTN_TOL + ATTN_TOL * ref.float().abs()).all())
+              and all(bool(torch.isfinite(a.grad.float()).all()) for a in leaves))
+        path_rows.append({"model": model_name, "shape": tag, "layout": layout,
+                          "max_abs_err": float(err.max()), "ok": ok})
+        if not ok:
+            raise SystemExit(f"fused_window_attention op disagrees at {model_name} {tag} {layout}")
+        del q, k, v, do, leaves, out, ref
+    counts = read_counts(wa, mlp_op)
+    want = launches(fused_window_attention_fwd=len(cases), fused_window_attention_bwd=len(cases))
+    ok = counts == want
+    emit({"phase": "fused_attention_path", "what": "fused_window_attention forward + backward "
+          "(autograd) at every ScOT-B and ScOT-L b32 attention shape (nthd) and ScOT-B stage 2 "
+          "in nhtd, nhdt, nhdt_packed", "cases": path_rows, "launches": counts, "ok": ok,
+          "tol": f"output allclose atol=rtol={ATTN_TOL} vs the plain version", "card": card})
+    if not ok:
+        raise SystemExit("fused_window_attention path launched other kernels than expected")
+
+    results = {"fwd": [], "bwd": []}
+    for model_name, tag, layout, (n, t, heads, d, nw, window, res, shift) in cases:
+        if layout != "nthd":
+            continue
+        q, k, v, do, bias, mask, scale = op_case(attn_mod, n, t, heads, d, nw, window, res,
+                                                 shift, gen)
+        bm = (bias[None] + mask[:, None]).contiguous()
+        shape = f"{tag}: windows={n} T={t} H={heads} D={d} nW={nw}"
+        out = wa._forward_sep(q, k, v, bm, scale)
+        ref = wa.attention_plain(q, k, v, bm, scale)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs()
+        ok = bool(torch.isfinite(out.float()).all()) and bool(
+            (err <= ATTN_TOL + ATTN_TOL * ref.float().abs()).all())
+        bms, by = attention_bound(n, t, heads, d, nw, bound_ms)
+        row = {"phase": "fused_attention_kernel", "kernel": "fused_window_attention_fwd",
+               "model": model_name, "shape": shape, "max_abs_err": float(err.max()),
+               "tol": f"allclose atol=rtol={ATTN_TOL}", "ok": ok,
+               "kernel_ms": cuda_ms(lambda: wa._forward_sep(q, k, v, bm, scale)),
+               "plain_ms": cuda_ms(lambda: wa.attention_plain(q, k, v, bm, scale)),
+               "library_ms": cuda_ms(attention_library_call(q, k, v, bm, scale)),
+               "bound_ms": bms, "bound_by": by, "card": card}
+        emit(row)
+        results["fwd"].append(row)
+        if not ok:
+            raise SystemExit(f"fused_window_attention kernel disagrees at {shape}")
+        args = (q, k, v, bm, scale, do)
+        out = wa.fused_window_attention_bwd(*args)
+        again = wa.fused_window_attention_bwd(*args)
+        ref = wa.attention_bwd_plain(*args)
+        torch.cuda.synchronize()
+        errs = compare(("dq", "dk", "dv", "dbm", "dscale"), out, ref)
+        ok = backward_ok(errs, out, ref, again, ATTN_TOL, close=3)
+        bms, by = attention_bwd_bound(n, t, heads, d, nw, bound_ms)
+        row = {"phase": "fused_attention_kernel", "kernel": "fused_window_attention_bwd",
+               "model": model_name, "shape": shape, "groups": wa.bwd_groups(n, nw, heads, t),
+               "errors": errs, "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+               "tol": f"dq, dk, dv allclose atol=rtol={ATTN_TOL}; dbm, dscale rel L2 <= "
+                      f"{SUM_REL_TOL}; second call bit-identical", "ok": ok,
+               "kernel_ms": cuda_ms(lambda: wa.fused_window_attention_bwd(*args)),
+               "plain_ms": cuda_ms(lambda: wa.attention_bwd_plain(*args)),
+               "library_ms": cuda_ms(attention_library_bwd(*args)),
+               "bound_ms": bms, "bound_by": by, "card": card}
+        emit(row)
+        results["bwd"].append(row)
+        if not ok:
+            raise SystemExit(f"fused_window_attention_bwd kernel disagrees at {shape}")
+        del q, k, v, do, bm, out, again, ref, args
+    return results, counts
+
+
+# ---------------------------------------------------------------------------
 # Model and rollout
 # ---------------------------------------------------------------------------
 
 COUNTERS = (("window_attention_fwd", "window_attention"), ("window_attention_bwd", "window_attention_bwd"),
-            ("fused_mlp_fwd", "mlp"), ("fused_mlp_bwd", "mlp_bwd"))
+            ("fused_mlp_fwd", "mlp"), ("fused_mlp_bwd", "mlp_bwd"),
+            ("fused_window_attention_fwd", "fused_window_attention"),
+            ("fused_window_attention_bwd", "fused_window_attention_bwd"),
+            ("mlp_cln_fwd", "mlp_cln"), ("mlp_cln_bwd", "mlp_cln_bwd"))
 
 
 def _wrapper(wa, mlp_op, attr):
-    return getattr(wa if attr.startswith("window") else mlp_op, attr)
+    return getattr(wa if "window" in attr else mlp_op, attr)
+
+
+def launches(**nonzero):
+    """The expected counts of a run: every kernel 0 but those named."""
+    return {name: nonzero.get(name, 0) for name, _ in COUNTERS}
 
 
 def reset_counts(wa, mlp_op):
@@ -398,7 +666,7 @@ def read_counts(wa, mlp_op):
 
 
 @torch.no_grad()
-def perturb_attention(model, attention_cls, gen):
+def perturb_attention(model, attention_cls, gen, tail=False):
     """Make the model's output depend on every head's attention pattern.
 
     At init the CPB bias is about 8 everywhere, every logit scale is 10 and
@@ -407,15 +675,18 @@ def perturb_attention(model, attention_cls, gen):
     the conditional norms of the embedding and after each attention scale by
     about 0.01, so the tokens are nearly alike and the output hardly depends
     on any attention pattern. So: the CPB MLP, logit scales and q/v biases
-    are redrawn from ``gen``, and those norms' scales set to about 1."""
+    are redrawn from ``gen``, and those norms' scales set to about 1; with
+    ``tail``, the conditional norms after each MLP too, so that the fused
+    block tail matters to the output."""
     def draw(p, std):
         p.copy_((std * torch.randn(p.shape, generator=gen)).to(p.device))
 
     model.embeddings.norm.weight.bias.fill_(1.0)
     for mod in model.modules():
-        norm = getattr(mod, "layernorm_before", None)
-        if norm is not None:
-            norm.weight.bias.fill_(1.0)
+        for name in ("layernorm_before",) + (("layernorm_after",) if tail else ()):
+            norm = getattr(mod, name, None)
+            if norm is not None:
+                norm.weight.bias.fill_(1.0)
         if isinstance(mod, attention_cls):
             s = mod.self
             cpb = s.continuous_position_bias_mlp
@@ -429,13 +700,18 @@ def perturb_attention(model, attention_cls, gen):
                 draw(s.value.bias, 0.05)
 
 
-def phase_model(pt, wa, mlp_op, attn_mod, card):
+def phase_model(pt, wa, mlp_op, attn_mod, card, fused_tail=False):
+    """The ScOT-B forward, kernel path against plain path; with
+    ``fused_tail``, under ``fused_block_tail=True`` (phase "fused_tail_model",
+    the MLP + norm + residual kernel at stages 0-1 in place of the MLP
+    kernel), the post-MLP norm scales set to about 1 as well."""
     cfg = pt.make_config("B", image_size=128, num_channels=4, num_out_channels=4,
                          channel_slice_list=(0, 1, 3, 4), use_conditioning=True,
-                         attention_impl="pallas")
+                         attention_impl="pallas", fused_block_tail=fused_tail)
     t0 = time.perf_counter()
     model = pt.build_model(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
-    perturb_attention(model, attn_mod.WindowAttention, torch.Generator().manual_seed(3))
+    perturb_attention(model, attn_mod.WindowAttention, torch.Generator().manual_seed(3),
+                      tail=fused_tail)
     plain = pt.ScOT(cfg.replace(attention_impl="xla"), dtype=torch.bfloat16)
     plain.load_state_dict(model.state_dict(), strict=True)
     plain = plain.to("cuda").eval()
@@ -454,13 +730,16 @@ def phase_model(pt, wa, mlp_op, attn_mod, card):
         fwd_ms = host_ms(lambda: model(x, t), iters=5)
         plain_fwd_ms = host_ms(lambda: plain(x, t), iters=5)
     rel = float((y - y_plain).norm() / y_plain.norm())
+    want = (launches(window_attention_fwd=64, mlp_cln_fwd=32) if fused_tail
+            else launches(window_attention_fwd=64, fused_mlp_fwd=32))
     ok = (tuple(y.shape) == (BATCH, 4, 128, 128) and bool(torch.isfinite(y).all())
-          and rel <= MODEL_REL_TOL
-          and counts == {"window_attention_fwd": 64, "window_attention_bwd": 0,
-                         "fused_mlp_fwd": 32, "fused_mlp_bwd": 0})
-    emit({"phase": "model", "model": "ScOT-B 128x128 c4 bf16 conditioned", "batch": BATCH,
+          and rel <= MODEL_REL_TOL and counts == want)
+    emit({"phase": "fused_tail_model" if fused_tail else "model",
+          "model": "ScOT-B 128x128 c4 bf16 conditioned"
+                   + (", fused_block_tail" if fused_tail else ""), "batch": BATCH,
           "weights": "seed 0 init; CPB MLP, logit scales, q/v biases redrawn (seed 3); "
-                     "embedding and post-attention norm scales 1",
+                     "embedding and post-attention norm scales 1"
+                     + ("; post-MLP norm scales 1" if fused_tail else ""),
           "params": sum(p.numel() for p in model.parameters()), "build_s": build_s,
           "rel_l2_vs_plain_path": rel, "tol": MODEL_REL_TOL,
           "out_rms": float(y.float().pow(2).mean().sqrt()),
@@ -468,7 +747,7 @@ def phase_model(pt, wa, mlp_op, attn_mod, card):
           "plain_path_forward_ms": plain_fwd_ms, "launches_per_forward": counts,
           "ok": ok, "card": card})
     if not ok:
-        raise SystemExit("model phase failed")
+        raise SystemExit(f"{'fused_tail_' if fused_tail else ''}model phase failed")
     return model, x, t, counts, fwd_ms
 
 
@@ -533,11 +812,19 @@ BLOCK_GRADS = ("attention.self.query.weight", "attention.self.key.weight",
                "intermediate.dense.weight", "output.dense.weight")
 
 
-def phase_train(pt, wa, mlp_op, model, card):
+# Under the fused block tail, the post-MLP norm's weights too: in the fused
+# blocks their gradients come out of the tail's backward kernel.
+TAIL_GRADS = BLOCK_GRADS + ("layernorm_after.weight.weight", "layernorm_after.bias.weight")
+
+
+def phase_train(pt, wa, mlp_op, model, card, fused_tail=False):
     """The ScOT-B train step on the card: gradients of the kernel path
     against the plain path on the same weights and batch, launches per
     step, then TRAIN_STEPS steps on that batch (lr 1e-4, weight decay 1e-6,
-    cosine over 10,000 steps, clip 5.0, as bench.py) and the step's time."""
+    cosine over 10,000 steps, clip 5.0, as bench.py) and the step's time.
+    With ``fused_tail`` the model is the fused-tail one (phase
+    "fused_tail_train")."""
+    block_grads = TAIL_GRADS if fused_tail else BLOCK_GRADS
     batch = train_batch()
     plain = pt.ScOT(model.config.replace(attention_impl="xla"), dtype=torch.bfloat16)
     plain.load_state_dict(model.state_dict(), strict=True)
@@ -551,8 +838,8 @@ def phase_train(pt, wa, mlp_op, model, card):
     grad_counts = read_counts(wa, mlp_op)
     bad = [n for n, g in g_kernel.items() if g is None or not bool(torch.isfinite(g).all())]
     zero = [n for n, g in g_kernel.items()
-            if n.endswith(BLOCK_GRADS) and g is not None and float(g.abs().max()) == 0.0]
-    blocks_checked = sum(1 for n in g_kernel if n.endswith(BLOCK_GRADS[0]))
+            if n.endswith(block_grads) and g is not None and float(g.abs().max()) == 0.0]
+    blocks_checked = sum(1 for n in g_kernel if n.endswith(block_grads[0]))
     vec_kernel = torch.cat([g.float().flatten() for g in g_kernel.values()])
     rel = float((vec_kernel - vec_plain).norm() / vec_plain.norm())
     del vec_kernel, vec_plain, g_kernel
@@ -577,17 +864,22 @@ def phase_train(pt, wa, mlp_op, model, card):
     torch.cuda.reset_peak_memory_stats()
     step_ms = host_ms(step, iters=5)
     peak = torch.cuda.max_memory_allocated()
-    want = {"window_attention_fwd": 64, "window_attention_bwd": 64, "fused_mlp_fwd": 32,
-            "fused_mlp_bwd": 32}
+    want = (launches(window_attention_fwd=64, window_attention_bwd=64, mlp_cln_fwd=32,
+                     mlp_cln_bwd=32) if fused_tail
+            else launches(window_attention_fwd=64, window_attention_bwd=64, fused_mlp_fwd=32,
+                          fused_mlp_bwd=32))
     ok = (not bad and not zero and blocks_checked == 64 and rel <= GRAD_REL_TOL
           and math.isfinite(loss_kernel) and abs(loss_kernel - loss_plain) <= GRAD_REL_TOL * abs(loss_plain)
           and grad_counts == want and step_counts == want
           and all(math.isfinite(v) for v in losses) and losses[-1] < losses[0])
-    emit({"phase": "train", "model": "ScOT-B 128x128 c4 bf16 conditioned, fp32 parameters",
+    emit({"phase": "fused_tail_train" if fused_tail else "train",
+          "model": "ScOT-B 128x128 c4 bf16 conditioned, fp32 parameters"
+                   + (", fused_block_tail" if fused_tail else ""),
           "batch": BATCH, "weights": "those of the model phase",
           "loss_kernel_path": loss_kernel, "loss_plain_path": loss_plain,
           "grad_rel_l2_vs_plain_path": rel, "tol": GRAD_REL_TOL,
-          "params_without_finite_grad": bad, "block_params_with_zero_grad": zero,
+          "params_without_finite_grad": bad, "block_grads_checked": list(block_grads),
+          "block_params_with_zero_grad": zero,
           "blocks_checked": blocks_checked, "launches_per_grad": grad_counts,
           "launches_per_step": step_counts,
           "optimizer": "AdamW 4-group, lr 1e-4 cosine/10000, wd 1e-6, clip 5.0",
@@ -595,7 +887,7 @@ def phase_train(pt, wa, mlp_op, model, card):
           "samples_per_s": BATCH / (step_ms / 1e3), "peak_memory_gib": peak / 2 ** 30,
           "ok": ok, "card": card})
     if not ok:
-        raise SystemExit("train phase failed")
+        raise SystemExit(f"{'fused_tail_' if fused_tail else ''}train phase failed")
     return step, step_counts, step_ms
 
 
@@ -630,7 +922,7 @@ def device_time_profile(fn, wall_ref_ms):
     for e in kernels:
         name = e.key.lower()
         if any(k in name for k in ("window_attention_fwd_kernel", "mlp_fwd_kernel", "attn_bwd_",
-                                   "mlp_bwd_")):
+                                   "mlp_bwd_", "mlp_cln_")):
             g = "port kernels"
         elif "multi_tensor_apply" in name:
             g = "optimizer (multi-tensor AdamW)"
@@ -650,37 +942,84 @@ def device_time_profile(fn, wall_ref_ms):
                            for e in top]}
 
 
-def phase_train_profile(step, step_ms, card):
-    emit({"phase": "train_profile", "what": "one ScOT-B b32 train step, kernel path",
+def phase_train_profile(step, step_ms, card, fused_tail=False):
+    emit({"phase": "fused_tail_train_profile" if fused_tail else "train_profile",
+          "what": "one ScOT-B b32 train step, kernel path"
+                  + (", fused_block_tail" if fused_tail else ""),
           "train_step_ms": step_ms, **device_time_profile(step, step_ms), "card": card})
 
 
-def kernels_line(results, bwd_results, per_forward, rollout_counts, step_counts):
-    def pick(rows, shape_prefix):
-        return next(r for r in rows if r["model"] == "B" and r["shape"].startswith(shape_prefix))
+def phase_tail_vs_unfused(model, tail_model, x, t, step, tail_step, card):
+    """The unfused and the fused-tail ScOT-B b32 forward and train step in
+    turns (unfused, fused, fused, unfused), the median of ten timed calls
+    each."""
+    def forward(m):
+        def fn():
+            with torch.no_grad():
+                m(x, t)
+        return fn
 
-    def entry(name, source, replaces, rows, shape_prefix, **extra):
-        row = pick(rows, shape_prefix)
+    out = {"phase": "fused_tail_vs_unfused", "card": card}
+    for what, a, b in (("forward", forward(model.eval()), forward(tail_model.eval())),
+                       ("train_step", step, tail_step)):
+        times = [host_ms(fn, iters=10) for fn in (a, b, b, a)]
+        unfused, fused = (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
+        out[what] = {"unfused_ms": [times[0], times[3]], "fused_tail_ms": [times[1], times[2]],
+                     "unfused_samples_per_s": BATCH / (unfused / 1e3),
+                     "fused_tail_samples_per_s": BATCH / (fused / 1e3),
+                     "faster": "fused_tail" if fused < unfused else "unfused"}
+    emit(out)
+
+
+def kernels_line(results, bwd_results, cln_results, op_results, per_forward, rollout_counts,
+                 step_counts, tail_forward, tail_counts, op_counts):
+    """One entry per hand-written kernel. ``launches`` is the count from the
+    path that runs it: the train step (the first four), the fused-tail train
+    step (the tail's two), the op's forward + backward path (the separate-
+    q/k/v attention's two)."""
+    def entry(name, source, replaces, rows, shape_prefix, counts, **extra):
+        row = next(r for r in rows if r["model"] == "B" and r["shape"].startswith(shape_prefix))
         b_rows = [r for r in rows if r["model"] == "B"]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces, **extra,
-                "launches": step_counts[name], "forward_launches": per_forward[name],
-                "rollout_launches": rollout_counts[name], "train_step_launches": step_counts[name],
+                "launches": counts[name],
                 "max_abs_err": max(r["max_abs_err"] for r in b_rows),
                 "ms": row["kernel_ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"],
                 "shape": "ScOT-B b32 " + row["shape"]}
 
+    def main_path(name):
+        return {"forward_launches": per_forward[name], "rollout_launches": rollout_counts[name],
+                "train_step_launches": step_counts[name]}
+
+    def tail_path(name):
+        return {"fused_tail_forward_launches": tail_forward[name],
+                "fused_tail_train_step_launches": tail_counts[name]}
+
+    csrc = "poseidon_tpu_torch/csrc/"
     return {"kernels": [
-        entry("window_attention_fwd", "poseidon_tpu_torch/csrc/window_attention.cu",
-              "poseidon_tpu/ops/window_attention.py:131", results["attention"], "stage0_shifted"),
-        entry("window_attention_bwd", "poseidon_tpu_torch/csrc/window_attention_bwd.cu",
+        entry("window_attention_fwd", csrc + "window_attention.cu",
+              "poseidon_tpu/ops/window_attention.py:131", results["attention"], "stage0_shifted",
+              step_counts, **main_path("window_attention_fwd")),
+        entry("window_attention_bwd", csrc + "window_attention_bwd.cu",
               "poseidon_tpu/ops/window_attention.py:215", bwd_results["attention"],
-              "stage0_shifted"),
-        entry("fused_mlp_fwd", "poseidon_tpu_torch/csrc/mlp.cu", "poseidon_tpu/ops/mlp.py:149",
-              results["mlp"], "stage0", also_replaces="poseidon_tpu/ops/mlp.py:87"),
-        entry("fused_mlp_bwd", "poseidon_tpu_torch/csrc/mlp_bwd.cu", "poseidon_tpu/ops/mlp.py:157",
-              bwd_results["mlp"], "stage0",
-              also_replaces="poseidon_tpu/ops/mlp.py:114, poseidon_tpu/ops/mlp.py:130"),
+              "stage0_shifted", step_counts, **main_path("window_attention_bwd")),
+        entry("fused_mlp_fwd", csrc + "mlp.cu", "poseidon_tpu/ops/mlp.py:149",
+              results["mlp"], "stage0", step_counts, also_replaces="poseidon_tpu/ops/mlp.py:87",
+              **main_path("fused_mlp_fwd")),
+        entry("fused_mlp_bwd", csrc + "mlp_bwd.cu", "poseidon_tpu/ops/mlp.py:157",
+              bwd_results["mlp"], "stage0", step_counts,
+              also_replaces="poseidon_tpu/ops/mlp.py:114, poseidon_tpu/ops/mlp.py:130",
+              **main_path("fused_mlp_bwd")),
+        entry("fused_window_attention_fwd", csrc + "window_attention.cu",
+              "poseidon_tpu/ops/window_attention.py:126", op_results["fwd"], "stage0_shifted",
+              op_counts, path="fused_window_attention forward + backward, every ScOT-B/L shape"),
+        entry("fused_window_attention_bwd", csrc + "window_attention_bwd.cu",
+              "poseidon_tpu/ops/window_attention.py:201", op_results["bwd"], "stage0_shifted",
+              op_counts, path="fused_window_attention forward + backward, every ScOT-B/L shape"),
+        entry("mlp_cln_fwd", csrc + "mlp_cln.cu", "poseidon_tpu/ops/mlp.py:272",
+              cln_results["fwd"], "stage0", tail_counts, **tail_path("mlp_cln_fwd")),
+        entry("mlp_cln_bwd", csrc + "mlp_cln_bwd.cu", "poseidon_tpu/ops/mlp.py:284",
+              cln_results["bwd"], "stage0", tail_counts, **tail_path("mlp_cln_bwd")),
     ]}
 
 
@@ -702,7 +1041,16 @@ def main() -> int:
     bwd_results = phase_bwd_kernels(pt, wa_mod, mlp_op, attn_mod, bound_ms, card)
     step, step_counts, step_ms = phase_train(pt, wa_mod, mlp_op, model, card)
     phase_train_profile(step, step_ms, card)
-    emit(kernels_line(results, bwd_results, per_forward, rollout_counts, step_counts))
+    cln_results = phase_cln_kernels(pt, mlp_op, bound_ms, card)
+    op_results, op_counts = phase_fused_attention(pt, wa_mod, mlp_op, attn_mod, bound_ms, card)
+    tail_model, _, _, tail_forward, _ = phase_model(pt, wa_mod, mlp_op, attn_mod, card,
+                                                    fused_tail=True)
+    tail_step, tail_counts, tail_step_ms = phase_train(pt, wa_mod, mlp_op, tail_model, card,
+                                                       fused_tail=True)
+    phase_train_profile(tail_step, tail_step_ms, card, fused_tail=True)
+    phase_tail_vs_unfused(model, tail_model, x, t, step, tail_step, card)
+    emit(kernels_line(results, bwd_results, cln_results, op_results, per_forward,
+                      rollout_counts, step_counts, tail_forward, tail_counts, op_counts))
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -57,8 +57,9 @@ class ScOTConfig:
     # JAX-only layout switch (scanned block pairs). The port always runs
     # unrolled blocks; hub.from_jax_params unrolls scanned params.
     scan_blocks: bool = False
-    # JAX-only fused MLP+norm+residual kernel. Not ported: under it the port
-    # runs the block as if the flag were off.
+    # The fused MLP + conditional norm + residual kernel of the block tail
+    # (ops/mlp.py::mlp_cln): with attention_impl="pallas" and conditioning,
+    # taken at the stages ops/mlp.py::use_fused_tail picks.
     fused_block_tail: bool = False
     # JAX-only token-tile gate of the TPU MLP kernel. Kept so JAX configs
     # load; the port dispatches with its own rule (ops/mlp.py).

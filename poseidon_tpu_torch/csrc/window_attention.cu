@@ -1,18 +1,25 @@
 // Window cosine attention forward for Hopper (sm_90a), plain C interface.
 //
-// Replaces the TPU kernel poseidon_tpu/ops/window_attention.py::_fwd_kernel_qkv
-// (pallas_call in _core_fwd_qkv). Per (window, head) pair:
-//   q  = bf16(q + bf16(qb));  qn = q / max(|q|, 1e-12);  kn = k / max(|k|, 1e-12)
+// Replaces two TPU kernels of poseidon_tpu/ops/window_attention.py:
+// _fwd_kernel_qkv (pallas_call in _core_fwd_qkv; entry window_attention_fwd:
+// q/k/v packed in one QKV tensor, with the q-projection bias added in the
+// kernel) and _fwd_kernel (pallas_call in _core_fwd; entry
+// fused_window_attention_fwd: separate q, k and v, no q-bias). Per (window,
+// head) pair:
+//   q  = bf16(q + bf16(qb))                                   (packed entry only)
+//   qn = q / max(|q|, 1e-12);  kn = k / max(|k|, 1e-12)
 //   S  = bf16(scale[h] * qn) . bf16(kn)^T  (fp32 accumulate)  + bm[n mod nW, h]
 //   e  = exp(S - max S);  O = bf16(e) . v / sum(e)            (fp32 softmax)
 // The Python wrapper and the plain PyTorch version with the same rounding
 // points are in ops/window_attention.py.
 //
-// Layouts. The kernel reads q, k and v straight out of the fused QKV GEMM's
-// output qkv (N, T, 3C), columns [q | k | v] in (head, d) order, with strides:
-// no split or transpose copies. It writes O token-major as (N, T, C), columns
-// in (head, d) order, which is the A operand the output-projection GEMM takes
-// as it is. Token-major rows make every q/k/v/O row of one head a contiguous
+// Layouts. The kernel reads q, k and v token-major from three base pointers
+// with one row stride: out of the fused QKV GEMM's output qkv (N, T, 3C),
+// columns [q | k | v] in (head, d) order, at offsets 0, C, 2C and stride 3C,
+// with no split or transpose copies; or from three (N, T, C) tensors at stride
+// C (the separate-q/k/v op, whose wrapper brings its four layouts to this
+// one). It writes O token-major as (N, T, C), columns in (head, d) order,
+// which is the A operand the output-projection GEMM takes as it is. Token-major rows make every q/k/v/O row of one head a contiguous
 // run of D bf16 values (64 or 128 bytes): D/8 lanes read it as 16-byte chunks.
 //
 // Bound on this card. Per pair the kernel reads 3*T*D bf16 and writes T*D,
@@ -112,9 +119,18 @@ struct Plan {
   static constexpr size_t bytes = den_off + size_t(ROWS) * 4;
 };
 
+// q, k and v of token (n, t) and head h at q/k/v + (n T + t) ld + h D.
+struct QKV {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  long long ld;
+};
+
+// qb (C,) is added to q where it is not null.
 template <int T, int D>
 __global__ void __launch_bounds__(THREADS)
-window_attention_fwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ qb,
+window_attention_fwd_kernel(QKV in, const float* __restrict__ qb,
                             const float* __restrict__ bm, const float* __restrict__ scale,
                             bf16* __restrict__ out, int n_win, int heads, int nw) {
   using P = Plan<T, D>;
@@ -131,7 +147,6 @@ window_attention_fwd_kernel(const bf16* __restrict__ qkv, const float* __restric
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int C = heads * D;
-  const long long stride = 3LL * C;  // elements between two tokens of qkv
   const long long total_rows = (long long)n_win * heads * T;
   const long long row0 = (long long)blockIdx.x * ROWS;
   const long long pair0 = row0 / T;
@@ -148,9 +163,9 @@ window_attention_fwd_kernel(const bf16* __restrict__ qkv, const float* __restric
     if (g < total_rows) {
       const long long pair = g / T, n = pair / heads;
       const int t = (int)(g % T), h = (int)(pair % heads);
-      const bf16* base = qkv + (n * T + t) * stride + (long long)h * D + part * 8;
-      kraw[it] = *reinterpret_cast<const uint4*>(base + C);
-      vraw[it] = *reinterpret_cast<const uint4*>(base + 2 * C);
+      const long long off = (n * T + t) * in.ld + (long long)h * D + part * 8;
+      kraw[it] = *reinterpret_cast<const uint4*>(in.k + off);
+      vraw[it] = *reinterpret_cast<const uint4*>(in.v + off);
     }
   }
 #pragma unroll
@@ -162,7 +177,7 @@ window_attention_fwd_kernel(const bf16* __restrict__ qkv, const float* __restric
       const long long pair = g / T, n = pair / heads;
       const int t = (int)(g % T), h = (int)(pair % heads);
       qraw[it] = *reinterpret_cast<const uint4*>(
-          qkv + (n * T + t) * stride + (long long)h * D + part * 8);
+          in.q + (n * T + t) * in.ld + (long long)h * D + part * 8);
     }
   }
   // Keys: L2-normalised, rounded; values as they are.
@@ -180,7 +195,8 @@ window_attention_fwd_kernel(const bf16* __restrict__ qkv, const float* __restric
     for (int e = 0; e < 8; ++e) f[e] = f[e] / nrm;
     *reinterpret_cast<uint4*>(sk + r * D + part * 8) = pack8(f);
   }
-  // Queries: + bias (rounded), normalised, scaled by the head's logit scale.
+  // Queries: + bias (rounded) if any, normalised, scaled by the head's logit
+  // scale.
 #pragma unroll
   for (int it = 0; it < QCH; ++it) {
     const int i = it * THREADS + tid, r = i / LPR, part = i % LPR;
@@ -188,12 +204,13 @@ window_attention_fwd_kernel(const bf16* __restrict__ qkv, const float* __restric
     const int h = g < total_rows ? (int)((g / T) % heads) : 0;
     float f[8];
     unpack8(qraw[it], f);
+    if (qb != nullptr) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) f[e] = round_bf16(f[e] + round_bf16(qb[h * D + part * 8 + e]));
+    }
     float ssq = 0.f;
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      f[e] = round_bf16(f[e] + round_bf16(qb[h * D + part * 8 + e]));
-      ssq += f[e] * f[e];
-    }
+    for (int e = 0; e < 8; ++e) ssq += f[e] * f[e];
     const float nrm = fmaxf(sqrtf(group_sum<LPR>(ssq)), EPS);
     const float sc = scale[h];
 #pragma unroll
@@ -293,8 +310,8 @@ window_attention_fwd_kernel(const bf16* __restrict__ qkv, const float* __restric
 }
 
 template <int T, int D>
-cudaError_t launch(const bf16* qkv, const float* qb, const float* bm, const float* scale,
-                   bf16* out, int n_win, int heads, int nw, cudaStream_t stream) {
+cudaError_t launch(QKV in, const float* qb, const float* bm, const float* scale, bf16* out,
+                   int n_win, int heads, int nw, cudaStream_t stream) {
   using P = Plan<T, D>;
   auto kernel = window_attention_fwd_kernel<T, D>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -302,8 +319,23 @@ cudaError_t launch(const bf16* qkv, const float* qb, const float* bm, const floa
   if (err != cudaSuccess) return err;
   const long long rows = (long long)n_win * heads * T;
   const unsigned grid = (unsigned)((rows + ROWS - 1) / ROWS);
-  kernel<<<grid, THREADS, P::bytes, stream>>>(qkv, qb, bm, scale, out, n_win, heads, nw);
+  kernel<<<grid, THREADS, P::bytes, stream>>>(in, qb, bm, scale, out, n_win, heads, nw);
   return cudaGetLastError();
+}
+
+cudaError_t run(QKV in, const float* qb, const float* bm, const float* scale, bf16* out,
+                int n_win, int t, int heads, int d, int nw, cudaStream_t st) {
+  if (n_win <= 0 || heads <= 0 || nw <= 0 || n_win % nw) return cudaErrorInvalidValue;
+#define POSEIDON_CASE(TT, DD) \
+  if (t == TT && d == DD) return launch<TT, DD>(in, qb, bm, scale, out, n_win, heads, nw, st);
+  POSEIDON_CASE(16, 32)
+  POSEIDON_CASE(64, 32)
+  POSEIDON_CASE(256, 32)
+  POSEIDON_CASE(16, 64)
+  POSEIDON_CASE(64, 64)
+  POSEIDON_CASE(256, 64)
+#undef POSEIDON_CASE
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -312,22 +344,22 @@ extern "C" int window_attention_fwd(const void* qkv, const void* qb, const void*
                                     const void* scale, void* out, int n_win, int t,
                                     int heads, int d, int nw, void* stream) {
   const bf16* q = static_cast<const bf16*>(qkv);
-  const float* b = static_cast<const float*>(qb);
-  const float* m = static_cast<const float*>(bm);
-  const float* s = static_cast<const float*>(scale);
-  bf16* o = static_cast<bf16*>(out);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n_win <= 0 || heads <= 0 || nw <= 0 || n_win % nw) return (int)cudaErrorInvalidValue;
-#define POSEIDON_CASE(TT, DD) \
-  if (t == TT && d == DD) return (int)launch<TT, DD>(q, b, m, s, o, n_win, heads, nw, st);
-  POSEIDON_CASE(16, 32)
-  POSEIDON_CASE(64, 32)
-  POSEIDON_CASE(256, 32)
-  POSEIDON_CASE(16, 64)
-  POSEIDON_CASE(64, 64)
-  POSEIDON_CASE(256, 64)
-#undef POSEIDON_CASE
-  return (int)cudaErrorInvalidValue;
+  const long long c = (long long)heads * d;
+  return (int)run(QKV{q, q + c, q + 2 * c, 3 * c}, static_cast<const float*>(qb),
+                  static_cast<const float*>(bm), static_cast<const float*>(scale),
+                  static_cast<bf16*>(out), n_win, t, heads, d, nw,
+                  static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int fused_window_attention_fwd(const void* q, const void* k, const void* v,
+                                          const void* bm, const void* scale, void* out,
+                                          int n_win, int t, int heads, int d, int nw,
+                                          void* stream) {
+  return (int)run(QKV{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                      static_cast<const bf16*>(v), (long long)heads * d},
+                  nullptr, static_cast<const float*>(bm), static_cast<const float*>(scale),
+                  static_cast<bf16*>(out), n_win, t, heads, d, nw,
+                  static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* cuda_error_string(int err) {

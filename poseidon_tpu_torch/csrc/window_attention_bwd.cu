@@ -1,8 +1,11 @@
 // Window cosine attention backward for Hopper (sm_90a), plain C interface.
 //
-// Replaces the TPU kernel poseidon_tpu/ops/window_attention.py::_bwd_kernel_qkv
-// (pallas_call in _core_bwd_qkv). Per (window, head) pair, with the scores
-// recomputed from q and k (no probabilities are stored by the forward):
+// Replaces two TPU kernels of poseidon_tpu/ops/window_attention.py:
+// _bwd_kernel_qkv (pallas_call in _core_bwd_qkv; entry window_attention_bwd:
+// q/k/v packed in one QKV tensor, with the q-bias) and _bwd_kernel
+// (pallas_call in _core_bwd; entry fused_window_attention_bwd: separate q, k
+// and v, no q-bias). Per (window, head) pair, with the scores recomputed from
+// q and k (no probabilities are stored by the forward):
 //   S = bf16(scale qn) . bf16(kn)^T + bm[n mod nW, h];  e = exp(S - max S);  den = sum e
 //   dv = bf16(e)^T . bf16(do / den)
 //   dp = do . v^T;  c = sum(dp e) / den;  ds = e (dp - c) / den        (fp32)
@@ -10,9 +13,11 @@
 //   dscale += sum_d dqs qn;  dq, dk through the L2 normalisation; rounded to bf16
 //   dbm[n mod nW, h] += ds;  dqb += sum over tokens of bf16(dq)             (fp32)
 // The wrapper and the plain PyTorch version with the same rounding points
-// are in ops/window_attention.py. Layouts are the forward's: q/k/v read out of
-// the QKV GEMM output (N, T, 3C), do read as (N, T, C), and dq/dk/dv written
-// into one (N, T, 3C) tensor that the QKV GEMM's backward takes as it is.
+// are in ops/window_attention.py. Layouts are the forward's: q/k/v read from
+// three base pointers with one row stride (out of the QKV GEMM output
+// (N, T, 3C), or three (N, T, C) tensors), do read as (N, T, C), and dq/dk/dv
+// written the same way as q/k/v were read (into one (N, T, 3C) tensor that
+// the QKV GEMM's backward takes as it is, or three (N, T, C) ones).
 //
 // Bound on this card. Per pair the kernel reads 4*T*D bf16 and writes 3*T*D,
 // and does about 8*T*T*D FLOPs in four products (recomputing S adds two): at
@@ -103,20 +108,27 @@ __device__ __forceinline__ uint4 pack8(const float* f) {
 
 __host__ __device__ constexpr size_t align128(size_t x) { return (x + 127) & ~size_t(127); }
 
-// Where the tensors of one pair are: the (window, head) pair's rows in qkv
-// (N, T, 3C) and in do / out (N, T, C).
+// q, k, v (which = 0, 1, 2) of token (n, t) and head h at in[which] +
+// (n T + t) ld + h D, and their gradients at the same offsets from din.
+struct QKVIo {
+  const bf16* in[3];
+  bf16* din[3];
+  long long ld;
+};
+
+// Where the tensors of one pair are: the (window, head) pair's rows of q/k/v
+// and their gradients, and of do (N, T, C).
 struct Geo {
-  const bf16* qkv;
+  QKVIo io;
   const bf16* dout;
-  bf16* dqkv;
   int T, C, D, h;
   long long n;
   __device__ __forceinline__ long long tok(int t) const { return n * T + t; }
   __device__ __forceinline__ const bf16* qkv_row(int t, int which) const {
-    return qkv + tok(t) * 3LL * C + (long long)which * C + (long long)h * D;
+    return io.in[which] + tok(t) * io.ld + (long long)h * D;
   }
   __device__ __forceinline__ bf16* dqkv_row(int t, int which) const {
-    return dqkv + tok(t) * 3LL * C + (long long)which * C + (long long)h * D;
+    return io.din[which] + tok(t) * io.ld + (long long)h * D;
   }
   __device__ __forceinline__ const bf16* do_row(int t) const {
     return dout + tok(t) * (long long)C + (long long)h * D;
@@ -146,7 +158,8 @@ __device__ void stage_keys(const Geo& g, bf16* skn, bf16* sv, int key0, int nkey
   }
 }
 
-// Query rows row0..: bf16(scale * normalise(bf16(q + bf16(qb)))), and the
+// Query rows row0..: bf16(scale * normalise(bf16(q + bf16(qb)))) (no qb
+// where it is null), and the
 // output cotangent rows as they are (dod == nullptr) or divided by the row's
 // softmax sum and rounded (dod != nullptr, sums from st).
 template <int D>
@@ -167,12 +180,13 @@ __device__ void stage_queries(const Geo& g, const float* qb, float sc, bf16* sqs
       *reinterpret_cast<uint4*>(sdod + r * D + part * 8) = pack8(f);
     }
     unpack8(qraw, f);
+    if (qb != nullptr) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) f[e] = round_bf16(f[e] + round_bf16(qb[g.h * D + part * 8 + e]));
+    }
     float ssq = 0.f;
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      f[e] = round_bf16(f[e] + round_bf16(qb[g.h * D + part * 8 + e]));
-      ssq += f[e] * f[e];
-    }
+    for (int e = 0; e < 8; ++e) ssq += f[e] * f[e];
     const float nrm = fmaxf(sqrtf(group_sum<LPR>(ssq)), EPS);
 #pragma unroll
     for (int e = 0; e < 8; ++e) f[e] = (f[e] / nrm) * sc;
@@ -229,11 +243,10 @@ struct QPlan {
 
 template <int T, int D>
 __global__ void __launch_bounds__(THREADS)
-attn_bwd_q_kernel(const bf16* __restrict__ qkv, const float* __restrict__ qb,
+attn_bwd_q_kernel(QKVIo io, const float* __restrict__ qb,
                   const float* __restrict__ bm, const float* __restrict__ scale,
-                  const bf16* __restrict__ dout, bf16* __restrict__ dqkv,
-                  float* __restrict__ stats, float* __restrict__ part_q,
-                  int n_win, int heads, int nw, int groups) {
+                  const bf16* __restrict__ dout, float* __restrict__ stats,
+                  float* __restrict__ part_q, int n_win, int heads, int nw, int groups) {
   using P = QPlan<T, D>;
   constexpr int STRIPS = T / P::R;
   constexpr int V = D / 32;
@@ -262,7 +275,7 @@ attn_bwd_q_kernel(const bf16* __restrict__ qkv, const float* __restrict__ qb,
   bf16* dsb = reinterpret_cast<bf16*>(sb);  // bf16(ds) over the dp strip, ldm T
   const float* bmp = bm + ((long long)bh * T + t0) * T;
 
-  Geo g{qkv, dout, dqkv, T, heads * D, D, h, 0};
+  Geo g{io, dout, T, heads * D, D, h, 0};
   float dqb_acc[V];
 #pragma unroll
   for (int i = 0; i < V; ++i) dqb_acc[i] = 0.f;
@@ -368,7 +381,8 @@ attn_bwd_q_kernel(const bf16* __restrict__ qkv, const float* __restrict__ qb,
 #pragma unroll
       for (int i = 0; i < V; ++i) {
         const int d = lane + 32 * i;
-        qf[i] = round_bf16(__bfloat162float(qrow[d]) + round_bf16(qb[h * D + d]));
+        qf[i] = __bfloat162float(qrow[d]);
+        if (qb != nullptr) qf[i] = round_bf16(qf[i] + round_bf16(qb[h * D + d]));
       }
       float ssq = 0.f;
 #pragma unroll
@@ -426,11 +440,10 @@ struct KVPlan {
 
 template <int T, int D>
 __global__ void __launch_bounds__(THREADS)
-attn_bwd_kv_kernel(const bf16* __restrict__ qkv, const float* __restrict__ qb,
+attn_bwd_kv_kernel(QKVIo io, const float* __restrict__ qb,
                    const float* __restrict__ bm, const float* __restrict__ scale,
-                   const bf16* __restrict__ dout, bf16* __restrict__ dqkv,
-                   const float* __restrict__ stats, float* __restrict__ part_bm,
-                   int n_win, int heads, int nw, int groups) {
+                   const bf16* __restrict__ dout, const float* __restrict__ stats,
+                   float* __restrict__ part_bm, int n_win, int heads, int nw, int groups) {
   using P = KVPlan<T, D>;
   constexpr int KSTRIPS = T / P::K;
   constexpr int V = D / 32;
@@ -463,7 +476,7 @@ attn_bwd_kv_kernel(const bf16* __restrict__ qkv, const float* __restrict__ qb,
   bf16* dsbt = ebt + 256;
   const float* bmp = bm + (long long)bh * T * T + key0 + k0;
 
-  Geo g{qkv, dout, dqkv, T, heads * D, D, h, 0};
+  Geo g{io, dout, T, heads * D, D, h, 0};
   wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
   wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fbc;
   wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fbr;
@@ -609,10 +622,10 @@ __global__ void attn_bwd_reduce_kernel(const float* __restrict__ part_bm,
 }
 
 template <int T, int D>
-cudaError_t launch(const bf16* qkv, const float* qb, const float* bm, const float* scale,
-                   const bf16* dout, bf16* dqkv, float* dqb, float* dbm, float* dscale,
-                   float* stats, float* part_bm, float* part_q, int n_win, int heads, int nw,
-                   int groups, cudaStream_t stream) {
+cudaError_t launch(QKVIo io, const float* qb, const float* bm, const float* scale,
+                   const bf16* dout, float* dqb, float* dbm, float* dscale, float* stats,
+                   float* part_bm, float* part_q, int n_win, int heads, int nw, int groups,
+                   cudaStream_t stream) {
   using PQ = QPlan<T, D>;
   using PK = KVPlan<T, D>;
   auto qk = attn_bwd_q_kernel<T, D>;
@@ -625,17 +638,47 @@ cudaError_t launch(const bf16* qkv, const float* qb, const float* bm, const floa
   const int base = nw * heads;
   const int strips = T / PQ::R;
   qk<<<groups * base * strips, THREADS, PQ::bytes, stream>>>(
-      qkv, qb, bm, scale, dout, dqkv, stats, part_q, n_win, heads, nw, groups);
+      io, qb, bm, scale, dout, stats, part_q, n_win, heads, nw, groups);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   kvk<<<groups * base * (T / PK::K), THREADS, PK::bytes, stream>>>(
-      qkv, qb, bm, scale, dout, dqkv, stats, part_bm, n_win, heads, nw, groups);
+      io, qb, bm, scale, dout, stats, part_bm, n_win, heads, nw, groups);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const long long total = (long long)base * T * T + (long long)heads * (D + 1);
   attn_bwd_reduce_kernel<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
       part_bm, part_q, dbm, dqb, dscale, groups, groups * strips, nw, heads, D, T);
   return cudaGetLastError();
+}
+
+cudaError_t run(QKVIo io, const void* qb, const void* bm, const void* scale, const void* dout,
+                void* dqb, void* dbm, void* dscale, void* stats, void* part_bm, void* part_q,
+                int n_win, int t, int heads, int d, int nw, int groups, void* stream) {
+  if (n_win <= 0 || heads <= 0 || nw <= 0 || n_win % nw || groups <= 0 ||
+      groups > n_win / nw)
+    return cudaErrorInvalidValue;
+  const float* b = static_cast<const float*>(qb);
+  const float* m = static_cast<const float*>(bm);
+  const float* s = static_cast<const float*>(scale);
+  const bf16* o = static_cast<const bf16*>(dout);
+  float* fb = static_cast<float*>(dqb);
+  float* fm = static_cast<float*>(dbm);
+  float* fs = static_cast<float*>(dscale);
+  float* st = static_cast<float*>(stats);
+  float* pb = static_cast<float*>(part_bm);
+  float* pq = static_cast<float*>(part_q);
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+#define POSEIDON_CASE(TT, DD)                                                                 \
+  if (t == TT && d == DD)                                                                     \
+    return launch<TT, DD>(io, b, m, s, o, fb, fm, fs, st, pb, pq, n_win, heads, nw, groups, cs);
+  POSEIDON_CASE(16, 32)
+  POSEIDON_CASE(64, 32)
+  POSEIDON_CASE(256, 32)
+  POSEIDON_CASE(16, 64)
+  POSEIDON_CASE(64, 64)
+  POSEIDON_CASE(256, 64)
+#undef POSEIDON_CASE
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -645,34 +688,26 @@ extern "C" int window_attention_bwd(const void* qkv, const void* qb, const void*
                                     void* dqb, void* dbm, void* dscale, void* stats,
                                     void* part_bm, void* part_q, int n_win, int t, int heads,
                                     int d, int nw, int groups, void* stream) {
-  if (n_win <= 0 || heads <= 0 || nw <= 0 || n_win % nw || groups <= 0 ||
-      groups > n_win / nw)
-    return (int)cudaErrorInvalidValue;
   const bf16* q = static_cast<const bf16*>(qkv);
-  const float* b = static_cast<const float*>(qb);
-  const float* m = static_cast<const float*>(bm);
-  const float* s = static_cast<const float*>(scale);
-  const bf16* o = static_cast<const bf16*>(dout);
   bf16* dq = static_cast<bf16*>(dqkv);
-  float* fb = static_cast<float*>(dqb);
-  float* fm = static_cast<float*>(dbm);
-  float* fs = static_cast<float*>(dscale);
-  float* st = static_cast<float*>(stats);
-  float* pb = static_cast<float*>(part_bm);
-  float* pq = static_cast<float*>(part_q);
-  cudaStream_t cs = static_cast<cudaStream_t>(stream);
-#define POSEIDON_CASE(TT, DD)                                                          \
-  if (t == TT && d == DD)                                                              \
-    return (int)launch<TT, DD>(q, b, m, s, o, dq, fb, fm, fs, st, pb, pq, n_win, heads, \
-                               nw, groups, cs);
-  POSEIDON_CASE(16, 32)
-  POSEIDON_CASE(64, 32)
-  POSEIDON_CASE(256, 32)
-  POSEIDON_CASE(16, 64)
-  POSEIDON_CASE(64, 64)
-  POSEIDON_CASE(256, 64)
-#undef POSEIDON_CASE
-  return (int)cudaErrorInvalidValue;
+  const long long c = (long long)heads * d;
+  QKVIo io{{q, q + c, q + 2 * c}, {dq, dq + c, dq + 2 * c}, 3 * c};
+  return (int)run(io, qb, bm, scale, dout, dqb, dbm, dscale, stats, part_bm, part_q, n_win, t,
+                  heads, d, nw, groups, stream);
+}
+
+// dqb is scratch here: the q-bias gradient of a q-bias that is not there.
+extern "C" int fused_window_attention_bwd(const void* q, const void* k, const void* v,
+                                          const void* bm, const void* scale, const void* dout,
+                                          void* dq, void* dk, void* dv, void* dqb, void* dbm,
+                                          void* dscale, void* stats, void* part_bm,
+                                          void* part_q, int n_win, int t, int heads, int d,
+                                          int nw, int groups, void* stream) {
+  QKVIo io{{static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v)},
+           {static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv)},
+           (long long)heads * d};
+  return (int)run(io, nullptr, bm, scale, dout, dqb, dbm, dscale, stats, part_bm, part_q, n_win,
+                  t, heads, d, nw, groups, stream);
 }
 
 extern "C" const char* cuda_error_string(int err) {

@@ -65,15 +65,25 @@ class DropPath(nn.Module):
         super().__init__()
         self.rate = rate
 
+    def keep_factor(self, batch: int,
+                    generator: Optional[torch.Generator] = None) -> Optional[torch.Tensor]:
+        """(batch,) fp32 keep mask / keep on the CPU, drawn as ``forward``
+        draws it, or None when inactive. The fused block tail folds it into
+        its per-sample scale and shift."""
+        if self.rate == 0.0 or not self.training:
+            return None
+        keep = 1.0 - self.rate
+        u = torch.rand((batch,), generator=generator, device="cpu")
+        return (u < keep).float() / keep
+
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        if self.rate == 0.0 or not self.training:
+        factor = self.keep_factor(x.shape[0], generator)
+        if factor is None:
             return x
-        keep = 1.0 - self.rate
         shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-        u = torch.rand(shape, generator=generator, device="cpu")
-        mask = (u < keep).to(x.device)
-        return torch.where(mask, x / keep, torch.zeros_like(x))
+        mask = (factor > 0).reshape(shape).to(x.device)
+        return torch.where(mask, x / (1.0 - self.rate), torch.zeros_like(x))
 
 
 class ConditionalLayerNorm(nn.Module):

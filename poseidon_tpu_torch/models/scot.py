@@ -3,7 +3,8 @@ neural operator with a U-Net encoder/decoder, mirroring
 ``poseidon_tpu.models.scot``.
 
 - SwinBlock: post-norm residuals, ``x = x + drop_path(norm(attn(x)))`` then
-  ``x = x + drop_path(norm(mlp(x)))``.
+  ``x = x + drop_path(norm(mlp(x)))``, the second in one kernel under
+  ``fused_block_tail`` (see ``SwinBlock.uses_fused_tail``).
 - Encode stage: blocks alternating shift 0 / window//2, then PatchMerging
   applied to ``blocks_out + stage_input``. The deepest stage has no merging.
 - Decode stage: deepest first, blocks shifted-first when the depth is even,
@@ -27,9 +28,10 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..config import ScOTConfig
-from ..ops.mlp import fused_mlp
+from ..ops.mlp import fused_mlp, mlp_cln, use_fused_tail
 from ..utils.device import resolve_device
 from .attention import (
     WindowAttention,
@@ -124,6 +126,19 @@ class SwinBlock(nn.Module):
         self.layernorm_after = make_norm(cfg.use_conditioning, dim, cfg.layer_norm_eps, dtype)
         self.drop_path = DropPath(drop_path)
 
+    def uses_fused_tail(self, time: Optional[torch.Tensor], tokens: int) -> bool:
+        """The fused block tail (``ops/mlp.py::mlp_cln``) in place of MLP ->
+        dropout -> conditional norm -> drop-path -> residual: under the
+        kernel path with ``fused_block_tail``, conditioning and a lead time,
+        no active hidden dropout, and where ``use_fused_tail`` takes the
+        stage (the JAX package's rule, ``models/scot.py:204-209``, with the
+        port's gate in place of its TPU VMEM budget)."""
+        cfg = self.config
+        return (cfg.attention_impl == "pallas" and cfg.fused_block_tail
+                and cfg.use_conditioning and time is not None
+                and (cfg.hidden_dropout_prob == 0.0 or not self.training)
+                and use_fused_tail(self.intermediate.dense.in_features, tokens))
+
     def forward(self, x: torch.Tensor, time: Optional[torch.Tensor],
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         cfg, dt = self.config, self.dtype
@@ -148,6 +163,20 @@ class SwinBlock(nn.Module):
 
         w1, b1 = self.intermediate.dense.weight, self.intermediate.dense.bias
         w2, b2 = self.output.dense.weight, self.output.dense.bias
+        if self.uses_fused_tail(time, l):
+            # MLP + conditional LayerNorm + residual in one kernel; the
+            # drop-path keep mask folds into the per-sample scale and shift
+            # (the tail is linear in them), drawn as the unfused branch's
+            # second DropPath draws it.
+            norm = self.layernorm_after
+            t = time.reshape(-1, 1).float()
+            scale = F.linear(t, norm.weight.weight, norm.weight.bias)
+            shift = F.linear(t, norm.bias.weight, norm.bias.bias)
+            factor = self.drop_path.keep_factor(b, generator)
+            if factor is not None:
+                factor = factor.to(x.device)[:, None]
+                scale, shift = scale * factor, shift * factor
+            return mlp_cln(x.to(dt), w1.to(dt), b1, w2.to(dt), b2, scale, shift, norm.eps)
         if cfg.attention_impl == "pallas":
             mlp = fused_mlp(x.to(dt), w1.to(dt), b1, w2.to(dt), b2)
         else:

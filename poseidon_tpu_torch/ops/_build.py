@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled with
 ``nvcc`` for ``sm_90a`` into ``build/kernels/lib<name>-<hash>.so`` (the hash
-covers the source and the flags) at first use, and loaded with ``ctypes``.
+covers the source, the ``csrc`` headers it includes and the flags) at first
+use, and loaded with ``ctypes``.
 :func:`build` starts one ``nvcc`` per source, all together. Nothing is built
 or loaded when this module is imported, and a failed build raises.
 """
@@ -12,13 +13,15 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Sequence
 
-SOURCES = ("window_attention", "window_attention_bwd", "mlp", "mlp_bwd")
+SOURCES = ("window_attention", "window_attention_bwd", "mlp", "mlp_bwd", "mlp_cln",
+           "mlp_cln_bwd")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -37,7 +40,9 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    headers = re.findall(rb'^#include "([^"]+)"', src, flags=re.M)
+    text = src + b"".join((CSRC / h.decode()).read_bytes() for h in headers)
+    digest = hashlib.sha1(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

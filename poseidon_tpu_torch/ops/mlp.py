@@ -15,8 +15,14 @@ kernels ``_bwd_kernel_dm``, ``_bwd_kernel_fused`` and ``_bwd_kernel_emit``
 do, and returns (dx in x's dtype, dw1, db1, dw2, db2 fp32, summed over all
 rows).
 
+The fused block tail (:func:`mlp_cln`, :func:`mlp_cln_bwd`) adds the
+conditional LayerNorm and the residual of a Swin block to the MLP, the
+function of ``_fwd_kernel_dm_cln`` / ``_bwd_kernel_dm_cln``; see
+:func:`mlp_cln_plain`.
+
 A CPU tensor goes to the plain version. A CUDA tensor goes to the kernel
-(``csrc/mlp.cu``, ``csrc/mlp_bwd.cu``) or raises.
+(``csrc/mlp.cu``, ``csrc/mlp_bwd.cu``, ``csrc/mlp_cln.cu``,
+``csrc/mlp_cln_bwd.cu``) or raises.
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ import ctypes
 
 import torch
 
-from ..models.layers import dense, gelu_exact
+from ..models.layers import _layer_stats, dense, gelu_exact
 from . import _build
 
 KERNEL_WIDTHS = (96, 192, 384)
@@ -70,6 +76,14 @@ def _check(x2, w1, b1, w2, b2=None):
     return m, c, f
 
 
+def _check_dy(dy2, x2):
+    """Checks a backward kernel's output cotangent against its input rows."""
+    if dy2.shape != x2.shape or dy2.dtype != x2.dtype or dy2.device != x2.device \
+            or not dy2.is_contiguous() or dy2.data_ptr() % 16:
+        raise ValueError("dy must be contiguous, 16-byte aligned, and of x's shape, dtype "
+                         "and device")
+
+
 def _forward(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
              w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
@@ -96,6 +110,12 @@ def mlp_bwd_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     points of ``_recompute`` / ``_bwd_kernel_dm``: du and g rounded to x's
     dtype before the weight products, fp32 accumulation, db1 from the
     unrounded du."""
+    dx, dw1, db1, dw2, db2 = _mlp_bwd_f32(x, w1, b1, w2, dy)
+    return dx.to(x.dtype).reshape(x.shape), dw1, db1, dw2, db2
+
+
+def _mlp_bwd_f32(x, w1, b1, w2, dy):
+    """:func:`mlp_bwd_plain` with dx as its fp32 (rows, C) sum."""
     cdt = x.dtype
     c = x.shape[-1]
     xf = x.reshape(-1, c).float()
@@ -106,8 +126,7 @@ def mlp_bwd_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     du = (dyf @ w2f) * dgelu
     dub = du.to(cdt).float()
     g = gelu_exact(u).to(cdt).float()
-    dx = (dub @ w1f).to(cdt).reshape(x.shape)
-    return dx, dub.t() @ xf, du.sum(dim=0), dyf.t() @ g, dyf.sum(dim=0)
+    return dub @ w1f, dub.t() @ xf, du.sum(dim=0), dyf.t() @ g, dyf.sum(dim=0)
 
 
 def bwd_splits(m: int, f: int, out_floats: int) -> int:
@@ -129,9 +148,7 @@ def mlp_bwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tenso
     x2 = x.reshape(-1, x.shape[-1])
     dy2 = dy.reshape(-1, dy.shape[-1])
     m, c, f = _check(x2, w1, b1, w2)
-    if dy2.shape != x2.shape or dy2.dtype != x2.dtype or not dy2.is_contiguous() \
-            or dy2.data_ptr() % 16:
-        raise ValueError("dy must be contiguous, 16-byte aligned, and of x's shape and dtype")
+    _check_dy(dy2, x2)
     n_out = 2 * f * c + f + c
     r = bwd_splits(m, f, n_out)
     dx = torch.empty_like(x2)
@@ -199,3 +216,172 @@ def fused_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     if use_mlp_kernel(x.shape[-1], x.shape[1]):
         return mlp(x, w1, b1, w2, b2)
     return dense(gelu_exact(dense(x, w1, b1)), w2, b2)
+
+
+# ---------------------------------------------------------------------------
+# The fused block tail: MLP + conditional LayerNorm + residual
+# ---------------------------------------------------------------------------
+
+def _cln_stats(o: torch.Tensor, eps: float):
+    """(yhat, r) of fp32 rows: r = rsqrt(var + eps) with the variance
+    E[o^2] - mu^2 clamped at 0, as ``_cln`` computes it."""
+    mu = o.mean(-1, keepdim=True)
+    var = torch.clamp((o * o).mean(-1, keepdim=True) - mu * mu, min=0.0)
+    r = torch.rsqrt(var + eps)
+    return (o - mu) * r, r
+
+
+def mlp_cln_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                  b2: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+                  eps: float) -> torch.Tensor:
+    """Plain PyTorch version of the fused tail kernel on a (B, L, C) stream
+    x with per-image fp32 ``scale`` and ``shift`` (B, C), with the rounding
+    points of ``_fwd_kernel_dm_cln``::
+
+        o   = mlp(x)                                   (rounded to x's dtype)
+        out = cast(x + cast(scale[b] * (o - mu) * r + shift[b]))
+    """
+    cdt = x.dtype
+    yhat, _ = _cln_stats(mlp_plain(x, w1, b1, w2, b2).float(), eps)
+    y = (scale.float()[:, None] * yhat + shift.float()[:, None]).to(cdt)
+    return (x.float() + y.float()).to(cdt)
+
+
+def mlp_cln_bwd_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                      b2: torch.Tensor, scale: torch.Tensor, eps: float, dy: torch.Tensor):
+    """Plain PyTorch version of the fused tail's backward kernel, with the
+    rounding points of ``_bwd_kernel_dm_cln``: the norm's backward ``do`` in
+    fp32, rounded to x's dtype as the MLP backward's cotangent, db2 summed
+    from the fp32 ``do``, and dx = cast(dy + dx_mlp) rounded once. Returns
+    (dx, dw1, db1, dw2, db2, dscale, dshift); dscale and dshift (B, C) are
+    per-image sums."""
+    cdt = x.dtype
+    yhat, r = _cln_stats(mlp_plain(x, w1, b1, w2, b2).float(), eps)
+    dyf = dy.float()
+    dyh = dyf * scale.float()[:, None]
+    do = r * (dyh - dyh.mean(-1, keepdim=True) - yhat * (dyh * yhat).mean(-1, keepdim=True))
+    dxm, dw1, db1, dw2, _ = _mlp_bwd_f32(x, w1, b1, w2, do.to(cdt))
+    dx = (dyf.reshape(dxm.shape) + dxm).to(cdt).reshape(x.shape)
+    return dx, dw1, db1, dw2, do.sum(dim=(0, 1)), (dyf * yhat).sum(dim=1), dyf.sum(dim=1)
+
+
+def _check_tail(x, scale, shift=None):
+    """Checks the fused tail's operands beyond the MLP's: a (B, L, C) stream
+    with whole 64-row tiles per image, and per-image fp32 (B, C) scale and
+    shift."""
+    if x.ndim != 3 or x.shape[1] % 64:
+        raise ValueError(f"mlp_cln kernel takes x (B, L, C) with L % 64 == 0, "
+                         f"got {tuple(x.shape)}")
+    b, _, c = x.shape
+    for name, a in (("scale", scale), ("shift", shift)):
+        if a is None:
+            continue
+        if a.shape != (b, c) or a.dtype != torch.float32:
+            raise ValueError(f"{name} must be ({b}, {c}) fp32, got {tuple(a.shape)} {a.dtype}")
+        if a.device != x.device or not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {x.device}")
+
+
+def _forward_cln(x, w1, b1, w2, b2, scale, shift, eps):
+    if x.device.type == "cpu":
+        return mlp_cln_plain(x, w1, b1, w2, b2, scale, shift, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"mlp_cln: unsupported device {x.device}")
+    x2 = x.reshape(-1, x.shape[-1])
+    m, c, f = _check(x2, w1, b1, w2, b2)
+    _check_tail(x, scale, shift)
+    out = torch.empty_like(x2)
+    lib = _build.load("mlp_cln", _CLN_SIGNATURES)
+    err = lib.mlp_cln_fwd(x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                          b2.data_ptr(), scale.data_ptr(), shift.data_ptr(), out.data_ptr(),
+                          m, c, f, x.shape[1], float(eps),
+                          torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"mlp_cln kernel launch failed: {_build.error_string(lib, err)}")
+    mlp_cln.launches += 1
+    return out.reshape(x.shape)
+
+
+def mlp_cln_bwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                b2: torch.Tensor, scale: torch.Tensor, eps: float, dy: torch.Tensor):
+    """The backward of :func:`mlp_cln` for the output cotangent ``dy``:
+    (dx, dw1, db1, dw2, db2, dscale, dshift); see :func:`mlp_cln_bwd_plain`."""
+    if x.device.type == "cpu":
+        return mlp_cln_bwd_plain(x, w1, b1, w2, b2, scale, eps, dy)
+    if x.device.type != "cuda":
+        raise ValueError(f"mlp_cln_bwd: unsupported device {x.device}")
+    x2 = x.reshape(-1, x.shape[-1])
+    dy2 = dy.reshape(-1, dy.shape[-1])
+    m, c, f = _check(x2, w1, b1, w2, b2)
+    _check_tail(x, scale)
+    _check_dy(dy2, x2)
+    b = x.shape[0]
+    n_out = 2 * f * c + f + c
+    r = bwd_splits(m, f, n_out)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dob = torch.empty_like(x2)            # bf16(do), the MLP backward's cotangent
+    dx = torch.empty_like(x2)
+    grads = torch.empty(n_out, **f32)     # dw1 | dw2 | db1 | sum of bf16(do), unused
+    part = torch.empty((r, n_out), **f32)
+    cpart = torch.empty((m // 64, 3, c), **f32)
+    cout = torch.empty(c + 2 * b * c, **f32)  # db2 | dscale | dshift
+    lib = _build.load("mlp_cln_bwd", _CLN_BWD_SIGNATURES)
+    err = lib.mlp_cln_bwd(x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                          b2.data_ptr(), scale.data_ptr(), dy2.data_ptr(), dob.data_ptr(),
+                          dx.data_ptr(), grads.data_ptr(), part.data_ptr(), cpart.data_ptr(),
+                          cout.data_ptr(), m, c, f, x.shape[1], r, float(eps),
+                          torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"mlp_cln_bwd kernel launch failed: {_build.error_string(lib, err)}")
+    mlp_cln_bwd.launches += 1
+    dw1, dw2, db1, _ = grads.split([f * c, c * f, f, c])
+    db2, dscale, dshift = cout.split([c, b * c, b * c])
+    return (dx.reshape(x.shape), dw1.view(f, c), db1, dw2.view(c, f), db2,
+            dscale.view(b, c), dshift.view(b, c))
+
+
+class MlpClnFn(torch.autograd.Function):
+    """Forward through the fused tail kernel (or its plain version on the
+    CPU), backward through its backward kernel (or its plain version): the
+    ``jax.custom_vjp`` of ``_mlp_cln_core``, with gradients to x, the MLP
+    weights and biases, scale and shift."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, scale, shift, eps):
+        ctx.eps = eps
+        ctx.save_for_backward(x, w1, b1, w2, b2, scale)
+        return _forward_cln(x, w1, b1, w2, b2, scale, shift, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w1, b1, w2, b2, scale = ctx.saved_tensors
+        return (*mlp_cln_bwd(x, w1, b1, w2, b2, scale, ctx.eps, dy.contiguous()), None)
+
+
+def mlp_cln(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+            b2: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+            eps: float = 1e-5) -> torch.Tensor:
+    """The fused Swin block tail ``x + scale * cln(mlp(x)) + shift`` of a
+    (B, L, C) stream with per-image (B, C) fp32 scale and shift, with its
+    backward. ``mlp_cln.launches`` counts forward kernel launches,
+    ``mlp_cln_bwd.launches`` backward ones."""
+    return MlpClnFn.apply(x, w1, b1, w2, b2, scale, shift, eps)
+
+
+def use_fused_tail(c: int, tokens_per_image: int) -> bool:
+    """The port's gate of the fused block tail: the MLP kernel's rule
+    (:func:`use_mlp_kernel`) and whole 64-row tiles per image. At ScOT-B on
+    128x128 inputs this picks stages 0-1, the blocks where the JAX package's
+    TPU VMEM budget (``dm_eligible(..., cln=True)``) also takes its kernel.
+    At ScOT-L that budget refuses every stage and this rule takes stages
+    0-1. Both paths compute the same function, so only the speed differs."""
+    return use_mlp_kernel(c, tokens_per_image) and tokens_per_image % 64 == 0
+
+
+mlp_cln.launches = 0
+mlp_cln_bwd.launches = 0
+_F = ctypes.c_float
+# x, w1, b1, w2, b2, scale, shift, out, M, C, F, L, eps, stream
+_CLN_SIGNATURES = {"mlp_cln_fwd": (_P,) * 8 + (_I,) * 4 + (_F, _P)}
+# x, w1, b1, w2, b2, scale, dy, dob, dx, grads, part, cpart, cout, M, C, F, L, R, eps, stream
+_CLN_BWD_SIGNATURES = {"mlp_cln_bwd": (_P,) * 13 + (_I,) * 5 + (_F, _P)}

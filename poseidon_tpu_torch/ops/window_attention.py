@@ -28,6 +28,11 @@ and k, as ``_bwd_kernel_qkv`` does, and returns (dqkv (N, T, 3C) in qkv's
 dtype, dqb (C,), dbm (nW, H, T, T), dscale (H,)), the last three fp32 and
 summed over all windows.
 
+:func:`fused_window_attention` is the JAX package's public op of the same
+name: the same attention on separate q, k and v with no q-bias (the function
+of ``_fwd_kernel`` / ``_bwd_kernel``), in its four layouts, with gradients to
+q, k, v, the position bias, the mask and the logit scales.
+
 A CPU tensor goes to the plain version. A CUDA tensor goes to the kernel
 (``csrc/window_attention.cu``, ``csrc/window_attention_bwd.cu``) or raises.
 """
@@ -43,16 +48,13 @@ from . import _build
 _EPS = 1e-12
 
 
-def window_attention_plain(qkv: torch.Tensor, qb: torch.Tensor, bm: torch.Tensor,
-                           scale: torch.Tensor, heads: int) -> torch.Tensor:
-    """Plain PyTorch version of the kernel, with its rounding points."""
-    n, t, c3 = qkv.shape
-    c = c3 // 3
-    d = c // heads
+def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bm: torch.Tensor,
+                    scale: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the kernel on (N, T, H, D) q, k, v (no
+    q-bias), with its rounding points; returns (N, T, H, D) in q's dtype."""
+    n, t, heads, _ = q.shape
     nw = bm.shape[0]
-    cdt = qkv.dtype
-    q, k, v = qkv.reshape(n, t, 3, heads, d).unbind(2)  # (N, T, H, D) each
-    q = q + qb.reshape(heads, d).to(cdt)
+    cdt = q.dtype
     qn = q.float() / torch.clamp(torch.linalg.vector_norm(q.float(), dim=-1, keepdim=True), min=_EPS)
     kn = k.float() / torch.clamp(torch.linalg.vector_norm(k.float(), dim=-1, keepdim=True), min=_EPS)
     qs = (qn * scale.reshape(1, 1, heads, 1)).to(cdt).float()
@@ -62,23 +64,28 @@ def window_attention_plain(qkv: torch.Tensor, qb: torch.Tensor, bm: torch.Tensor
     den = e.sum(dim=-1)                                               # (N, H, T)
     o = torch.einsum("nhts,nshd->nthd", e.to(cdt).float(), v.float())
     o = o / den.transpose(1, 2)[..., None]
-    return o.to(cdt).reshape(n, t, c)
+    return o.to(cdt)
 
 
-def _check(qkv, qb, bm, scale, heads):
-    if qkv.dtype == torch.float32:
-        raise NotImplementedError(
-            "window_attention kernel takes bf16 operands; fp32 kernel operands "
-            "are ROADMAP queue 2 item 'fp32 operands in the kernels'")
-    if qkv.dtype != torch.bfloat16:
-        raise TypeError(f"window_attention kernel: qkv must be bf16, got {qkv.dtype}")
-    if qkv.ndim != 3 or qkv.shape[2] % 3:
-        raise ValueError(f"qkv must be (N, T, 3C), got {tuple(qkv.shape)}")
+def window_attention_plain(qkv: torch.Tensor, qb: torch.Tensor, bm: torch.Tensor,
+                           scale: torch.Tensor, heads: int) -> torch.Tensor:
+    """Plain PyTorch version of the kernel, with its rounding points."""
     n, t, c3 = qkv.shape
-    c = c3 // 3
-    if c % heads:
-        raise ValueError(f"C={c} is not a multiple of heads={heads}")
-    d = c // heads
+    q, k, v = qkv.reshape(n, t, 3, heads, c3 // (3 * heads)).unbind(2)  # (N, T, H, D) each
+    q = q + qb.reshape(heads, -1).to(qkv.dtype)
+    return attention_plain(q, k, v, bm, scale).reshape(n, t, c3 // 3)
+
+
+def _check_operands(bf16s, fp32s, n, t, heads, d, bm):
+    """Checks shared by both kernels' wrappers; ``bf16s`` and ``fp32s`` are
+    (name, tensor) pairs. Returns nW."""
+    for name, a in bf16s:
+        if a.dtype == torch.float32:
+            raise NotImplementedError(
+                "window_attention kernel takes bf16 operands; fp32 kernel operands "
+                "are ROADMAP queue 2 item 'fp32 operands in the kernels'")
+        if a.dtype != torch.bfloat16:
+            raise TypeError(f"window_attention kernel: {name} must be bf16, got {a.dtype}")
     if t not in (16, 64, 256) or d not in (32, 64):
         raise ValueError(f"window_attention kernel takes T in (16, 64, 256) and "
                          f"D in (32, 64), got T={t}, D={d}")
@@ -86,18 +93,33 @@ def _check(qkv, qb, bm, scale, heads):
     if bm.shape != (nw, heads, t, t) or n % nw:
         raise ValueError(f"bm must be (nW, H, T, T) with N % nW == 0, got "
                          f"{tuple(bm.shape)} for N={n}")
-    if qb.shape != (c,) or scale.shape != (heads,):
-        raise ValueError("qb must be (C,) and scale (H,)")
-    for name, a in (("qb", qb), ("bm", bm), ("scale", scale)):
+    for name, a in fp32s:
         if a.dtype != torch.float32:
             raise TypeError(f"{name} must be fp32, got {a.dtype}")
-    for name, a in (("qkv", qkv), ("qb", qb), ("bm", bm), ("scale", scale)):
-        if a.device != qkv.device:
-            raise ValueError(f"{name} is on {a.device}, qkv on {qkv.device}")
+    first, dev = bf16s[0][0], bf16s[0][1].device
+    for name, a in bf16s + fp32s:
+        if a.device != dev:
+            raise ValueError(f"{name} is on {a.device}, {first} on {dev}")
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if qkv.data_ptr() % 16 or bm.data_ptr() % 32:
-        raise ValueError("qkv must be 16-byte aligned and bm 32-byte aligned")
+    if any(a.data_ptr() % 16 for _, a in bf16s) or bm.data_ptr() % 32:
+        raise ValueError(f"{', '.join(n for n, _ in bf16s)} must be 16-byte aligned "
+                         f"and bm 32-byte aligned")
+    return nw
+
+
+def _check(qkv, qb, bm, scale, heads):
+    if qkv.ndim != 3 or qkv.shape[2] % 3:
+        raise ValueError(f"qkv must be (N, T, 3C), got {tuple(qkv.shape)}")
+    n, t, c3 = qkv.shape
+    c = c3 // 3
+    if c % heads:
+        raise ValueError(f"C={c} is not a multiple of heads={heads}")
+    if qb.shape != (c,) or scale.shape != (heads,):
+        raise ValueError("qb must be (C,) and scale (H,)")
+    d = c // heads
+    nw = _check_operands([("qkv", qkv)], [("qb", qb), ("bm", bm), ("scale", scale)],
+                         n, t, heads, d, bm)
     return n, t, c, d, nw
 
 
@@ -120,23 +142,21 @@ def _forward(qkv: torch.Tensor, qb: torch.Tensor, bm: torch.Tensor,
     return out
 
 
-def window_attention_bwd_plain(qkv: torch.Tensor, qb: torch.Tensor, bm: torch.Tensor,
-                               scale: torch.Tensor, heads: int, do: torch.Tensor):
-    """Plain PyTorch version of the backward kernel: the function of
-    ``_bwd_body`` / ``_bwd_kernel_qkv``, with their rounding points (dod, e
-    before dV, ds before dQ/dK, and dq/dk/dv rounded to the input dtype;
-    everything else fp32; dqb summed from the rounded dq)."""
-    n, t, c3 = qkv.shape
-    c = c3 // 3
-    d = c // heads
+def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bm: torch.Tensor,
+                        scale: torch.Tensor, do: torch.Tensor):
+    """Plain PyTorch version of the backward kernel on (N, T, H, D) q, k,
+    v, do: the function of ``_bwd_body`` / ``_bwd_kernel``, with their
+    rounding points (dod, e before dV, ds before dQ/dK, and dq/dk/dv rounded
+    to the input dtype; everything else fp32). Returns (dq, dk, dv, dbm,
+    dscale)."""
+    n, t, heads, _ = q.shape
     nw = bm.shape[0]
-    cdt = qkv.dtype
+    cdt = q.dtype
 
     def rnd(x):
         return x.to(cdt).float()
 
-    q, k, v = qkv.reshape(n, t, 3, heads, d).unbind(2)  # (N, T, H, D) each
-    qf = (q + qb.reshape(heads, d).to(cdt)).float()
+    qf = q.float()
     kf = k.float()
     qnorm = torch.clamp(torch.linalg.vector_norm(qf, dim=-1, keepdim=True), min=_EPS)
     knorm = torch.clamp(torch.linalg.vector_norm(kf, dim=-1, keepdim=True), min=_EPS)
@@ -147,7 +167,7 @@ def window_attention_bwd_plain(qkv: torch.Tensor, qb: torch.Tensor, bm: torch.Te
     s = (s.reshape(n // nw, nw, heads, t, t) + bm[None]).reshape(n, heads, t, t)
     e = torch.exp(s - s.amax(dim=-1, keepdim=True))
     den = e.sum(dim=-1, keepdim=True)                                  # (N, H, T, 1)
-    dof = do.reshape(n, t, heads, d).float()
+    dof = do.float()
     dod = rnd(dof / den[..., 0].transpose(1, 2)[..., None])            # (N, T, H, D)
     dv = torch.einsum("nhts,nthd->nshd", rnd(e), dod).to(cdt)
     dp = torch.einsum("nthd,nshd->nhts", rnd(dof), v.float())
@@ -162,10 +182,21 @@ def window_attention_bwd_plain(qkv: torch.Tensor, qb: torch.Tensor, bm: torch.Te
 
     dq = norm_bwd(dqs * sc, qn, qnorm).to(cdt)
     dk = norm_bwd(dkn, kn, knorm).to(cdt)
-    dqkv = torch.stack([dq, dk, dv], dim=2).reshape(n, t, c3)
-    dqb = dq.float().sum(dim=(0, 1)).reshape(c)
     dbm = ds.reshape(n // nw, nw, heads, t, t).sum(dim=0)
-    return dqkv, dqb, dbm, dsrow.sum(dim=(0, 1))
+    return dq, dk, dv, dbm, dsrow.sum(dim=(0, 1))
+
+
+def window_attention_bwd_plain(qkv: torch.Tensor, qb: torch.Tensor, bm: torch.Tensor,
+                               scale: torch.Tensor, heads: int, do: torch.Tensor):
+    """Plain PyTorch version of the backward kernel: the function of
+    ``_bwd_body`` / ``_bwd_kernel_qkv``, with their rounding points (see
+    :func:`attention_bwd_plain`; dqb summed from the rounded dq)."""
+    n, t, c3 = qkv.shape
+    q, k, v = qkv.reshape(n, t, 3, heads, c3 // (3 * heads)).unbind(2)  # (N, T, H, D) each
+    q = q + qb.reshape(heads, -1).to(qkv.dtype)
+    dq, dk, dv, dbm, dscale = attention_bwd_plain(q, k, v, bm, scale, do.reshape(q.shape))
+    dqkv = torch.stack([dq, dk, dv], dim=2).reshape(n, t, c3)
+    return dqkv, dq.float().sum(dim=(0, 1)).reshape(-1), dbm, dscale
 
 
 def bwd_groups(n: int, nw: int, heads: int, t: int) -> int:
@@ -191,27 +222,33 @@ def window_attention_bwd(qkv: torch.Tensor, qb: torch.Tensor, bm: torch.Tensor,
         raise ValueError(f"do must be ({n}, {t}, {c}) {qkv.dtype} on {qkv.device}")
     if not do.is_contiguous() or do.data_ptr() % 16:
         raise ValueError("do must be contiguous and 16-byte aligned")
-    g = bwd_groups(n, nw, heads, t)
-    f32 = dict(dtype=torch.float32, device=qkv.device)
     dqkv = torch.empty_like(qkv)
-    dqb = torch.empty(c, **f32)
-    dbm = torch.empty((nw, heads, t, t), **f32)
-    dscale = torch.empty(heads, **f32)
-    stats = torch.empty((n * heads * t, 3), **f32)       # row max, sum, rowsum(dp * p)
-    strips = max(1, t // 64)
-    part_bm = torch.empty((g, nw, heads, t, t), **f32)
-    part_q = torch.empty((g * strips, nw, heads, d + 1), **f32)  # dqb | dscale
+    g, f32 = _bwd_scratch(n, t, heads, d, nw, qkv.device)
     lib = _build.load("window_attention_bwd", _BWD_SIGNATURES)
     err = lib.window_attention_bwd(
         qkv.data_ptr(), qb.data_ptr(), bm.data_ptr(), scale.data_ptr(), do.data_ptr(),
-        dqkv.data_ptr(), dqb.data_ptr(), dbm.data_ptr(), dscale.data_ptr(),
-        stats.data_ptr(), part_bm.data_ptr(), part_q.data_ptr(),
+        dqkv.data_ptr(), *(a.data_ptr() for a in f32),
         n, t, heads, d, nw, g, torch.cuda.current_stream(qkv.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"window_attention_bwd kernel launch failed: "
                            f"{_build.error_string(lib, err)}")
     window_attention_bwd.launches += 1
+    dqb, dbm, dscale = f32[:3]
     return dqkv, dqb, dbm, dscale
+
+
+def _bwd_scratch(n, t, heads, d, nw, device):
+    """The backward kernel's window groups G and its fp32 outputs and
+    scratch: dqb (C,), dbm (nW, H, T, T), dscale (H,), the query pass's row
+    statistics (max, sum, rowsum(dp p)) and the per-group partials of dbm
+    and of dqb | dscale."""
+    g = bwd_groups(n, nw, heads, t)
+    f32 = dict(dtype=torch.float32, device=device)
+    strips = max(1, t // 64)
+    return g, (torch.empty(heads * d, **f32), torch.empty((nw, heads, t, t), **f32),
+               torch.empty(heads, **f32), torch.empty((n * heads * t, 3), **f32),
+               torch.empty((g, nw, heads, t, t), **f32),
+               torch.empty((g * strips, nw, heads, d + 1), **f32))
 
 
 class WindowAttentionFn(torch.autograd.Function):
@@ -241,12 +278,173 @@ def window_attention(qkv: torch.Tensor, qb: torch.Tensor, bm: torch.Tensor,
     return WindowAttentionFn.apply(qkv, qb, bm, scale, heads)
 
 
+# ---------------------------------------------------------------------------
+# The separate-q/k/v op
+# ---------------------------------------------------------------------------
+
+LAYOUTS = ("nhtd", "nthd", "nhdt", "nhdt_packed")
+
+
+def _check_sep(q, k, v, bm, scale):
+    if q.ndim != 4 or k.shape != q.shape or v.shape != q.shape \
+            or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError("q, k and v must be (N, T, H, D) of one shape and dtype")
+    n, t, heads, d = q.shape
+    if scale.shape != (heads,):
+        raise ValueError("scale must be (H,)")
+    nw = _check_operands([("q", q), ("k", k), ("v", v)], [("bm", bm), ("scale", scale)],
+                         n, t, heads, d, bm)
+    return n, t, heads, d, nw
+
+
+def _forward_sep(q, k, v, bm, scale):
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, bm, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_window_attention: unsupported device {q.device}")
+    n, t, heads, d, nw = _check_sep(q, k, v, bm, scale)
+    out = torch.empty_like(q)
+    lib = _build.load("window_attention", _SIGNATURES)
+    err = lib.fused_window_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bm.data_ptr(), scale.data_ptr(),
+        out.data_ptr(), n, t, heads, d, nw, torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_window_attention kernel launch failed: "
+                           f"{_build.error_string(lib, err)}")
+    fused_window_attention.launches += 1
+    return out
+
+
+def fused_window_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               bm: torch.Tensor, scale: torch.Tensor, do: torch.Tensor):
+    """The backward of the separate-q/k/v attention on (N, T, H, D) q, k, v
+    and output cotangent ``do``: (dq, dk, dv in q's dtype, dbm (nW, H, T, T)
+    and dscale (H,) fp32, summed over all windows)."""
+    if q.device.type == "cpu":
+        return attention_bwd_plain(q, k, v, bm, scale, do)
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_window_attention_bwd: unsupported device {q.device}")
+    n, t, heads, d, nw = _check_sep(q, k, v, bm, scale)
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device \
+            or not do.is_contiguous() or do.data_ptr() % 16:
+        raise ValueError("do must be contiguous, 16-byte aligned, and of q's shape and dtype")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    g, f32 = _bwd_scratch(n, t, heads, d, nw, q.device)
+    lib = _build.load("window_attention_bwd", _BWD_SIGNATURES)
+    err = lib.fused_window_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bm.data_ptr(), scale.data_ptr(),
+        do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *(a.data_ptr() for a in f32), n, t, heads, d, nw, g,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_window_attention_bwd kernel launch failed: "
+                           f"{_build.error_string(lib, err)}")
+    fused_window_attention_bwd.launches += 1
+    return dq, dk, dv, f32[1], f32[2]
+
+
+class FusedWindowAttentionFn(torch.autograd.Function):
+    """The ``jax.custom_vjp`` of ``_attention_core``: forward and backward
+    kernels (or their plain versions on the CPU) on (N, T, H, D) q, k, v,
+    with gradients to q, k, v, bm and scale."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bm, scale):
+        ctx.save_for_backward(q, k, v, bm, scale)
+        return _forward_sep(q, k, v, bm, scale)
+
+    @staticmethod
+    def backward(ctx, do):
+        return fused_window_attention_bwd(*ctx.saved_tensors, do.contiguous())
+
+
+def _to_nthd(x: torch.Tensor, layout: str, heads: int) -> torch.Tensor:
+    if layout == "nthd":
+        return x
+    if layout == "nhtd":
+        return x.permute(0, 2, 1, 3)
+    if layout == "nhdt":
+        return x.permute(0, 3, 1, 2)
+    # nhdt_packed: (N, H', D, P*T), head h'*P + j at tokens j*T.. of row h'.
+    n, hp, d, tp = x.shape
+    p = heads // hp
+    return x.reshape(n, hp, d, p, tp // p).permute(0, 4, 1, 3, 2).reshape(n, tp // p, heads, d)
+
+
+def _from_nthd(o: torch.Tensor, layout: str, packed_rows: int) -> torch.Tensor:
+    if layout == "nthd":
+        return o
+    if layout == "nhtd":
+        return o.permute(0, 2, 1, 3)
+    if layout == "nhdt":
+        return o.permute(0, 2, 3, 1)
+    n, t, h, d = o.shape
+    hp = packed_rows
+    return o.reshape(n, t, hp, h // hp, d).permute(0, 2, 4, 3, 1).reshape(n, hp, d, h // hp * t)
+
+
+def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           bias: torch.Tensor, mask: torch.Tensor, scale: torch.Tensor,
+                           layout: str = "nhtd", windows_per_image: int = 1) -> torch.Tensor:
+    """Fused cosine window attention on separate q, k, v, with its backward:
+    ``poseidon_tpu.ops.fused_window_attention`` in PyTorch.
+
+    Args:
+        q, k, v: projected (unnormalised) q/k/v, as (N, H, T, D) when
+            ``layout == "nhtd"``, (N, T, H, D) ("nthd"), (N, H, D, T)
+            ("nhdt"), or (N, H', D, P*T) with P = H / H' heads packed along
+            the token axis in (head-block, token) order, head h'*P + j at
+            tokens j*T.. ("nhdt_packed", unshifted windows only). N is a
+            multiple of the window count nW, the windows of one image
+            contiguous.
+        bias: (H, T, T) fp32 position bias (already 16*sigmoid'd).
+        mask: (nW, T, T) fp32 additive shift mask, already doubled by the
+            caller; zeros when unshifted.
+        scale: (H,) fp32 exp(clamped logit_scale).
+        windows_per_image: the true number of windows per image. It sets the
+            shard granularity of the JAX op; on one card it is only checked.
+    Returns:
+        The attention output in q's dtype and the inputs' layout.
+
+    The kernels read token-major (N, T, H, D): the other layouts are brought
+    to it and back, and head packing, which on the TPU only filled its
+    lanes and is the same function as no packing, is undone.
+    ``fused_window_attention.launches`` counts forward kernel launches,
+    ``fused_window_attention_bwd.launches`` backward ones.
+    """
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
+    if layout == "nhdt_packed" and mask.shape[0] != 1:
+        raise ValueError("the packed layout requires unshifted windows: mask (1, T, T)")
+    heads = bias.shape[0]
+    q4, k4, v4 = (_to_nthd(a, layout, heads).contiguous() for a in (q, k, v))
+    n = q4.shape[0]
+    if int(windows_per_image) != windows_per_image or windows_per_image < 1 \
+            or n % max(int(windows_per_image), mask.shape[0]):
+        raise ValueError(f"windows_per_image must be a positive int with N % max(it, nW) == 0, "
+                         f"got {windows_per_image} for N={n}, nW={mask.shape[0]}")
+    bm = (bias.float()[None] + mask.float()[:, None]).contiguous()
+    out = FusedWindowAttentionFn.apply(q4, k4, v4, bm, scale.float())
+    return _from_nthd(out, layout, q.shape[1])
+
+
 window_attention.launches = 0
 window_attention_bwd.launches = 0
+fused_window_attention.launches = 0
+fused_window_attention_bwd.launches = 0
 _BWD_TARGET_CTAS = 4 * 132
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# qkv, qb, bm, scale, out, n_windows, T, heads, D, nW, stream
-_SIGNATURES = {"window_attention_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)}
-# qkv, qb, bm, scale, do, dqkv, dqb, dbm, dscale, stats, part_bm, part_q,
-# n_windows, T, heads, D, nW, groups, stream
-_BWD_SIGNATURES = {"window_attention_bwd": (_P,) * 12 + (_I,) * 6 + (_P,)}
+_SIGNATURES = {
+    # qkv, qb, bm, scale, out, n_windows, T, heads, D, nW, stream
+    "window_attention_fwd": (_P,) * 5 + (_I,) * 5 + (_P,),
+    # q, k, v, bm, scale, out, n_windows, T, heads, D, nW, stream
+    "fused_window_attention_fwd": (_P,) * 6 + (_I,) * 5 + (_P,),
+}
+_BWD_SIGNATURES = {
+    # qkv, qb, bm, scale, do, dqkv, dqb, dbm, dscale, stats, part_bm, part_q,
+    # n_windows, T, heads, D, nW, groups, stream
+    "window_attention_bwd": (_P,) * 12 + (_I,) * 6 + (_P,),
+    # q, k, v, bm, scale, do, dq, dk, dv, dqb (scratch), dbm, dscale, stats,
+    # part_bm, part_q, n_windows, T, heads, D, nW, groups, stream
+    "fused_window_attention_bwd": (_P,) * 15 + (_I,) * 6 + (_P,),
+}

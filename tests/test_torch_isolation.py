@@ -44,7 +44,8 @@ def test_imports_with_jax_blocked():
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'flax', 'optax', 'poseidon_tpu'):\n"
             "    sys.modules[m] = None\n"
-            "import poseidon_tpu_torch, poseidon_tpu_torch.hub, poseidon_tpu_torch.ops.mlp\n"
+            "import poseidon_tpu_torch, poseidon_tpu_torch.hub, poseidon_tpu_torch.ops\n"
+            "import poseidon_tpu_torch.ops.mlp, poseidon_tpu_torch.ops._build\n"
             "import poseidon_tpu_torch.ops.window_attention, poseidon_tpu_torch.rollout\n"
             "import poseidon_tpu_torch.training.optimizer, poseidon_tpu_torch.training.trainer\n"
             "assert not any(m.split('.')[0] in ('jax', 'flax') and sys.modules[m] is not None\n"

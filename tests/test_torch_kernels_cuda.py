@@ -171,3 +171,131 @@ def test_fp32_on_card_raises():
     w1, w2 = torch.randn(384, 96, device="cuda"), torch.randn(96, 384, device="cuda")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         mlp_op.mlp(x, w1, torch.zeros(384, device="cuda"), w2, torch.zeros(96, device="cuda"))
+
+
+# (B, L, C): ScOT-B stage 0 and 1 blocks (C = 96 at L = 1024, 192 at 256),
+# ScOT-L's stage 1 width, and one-tile images.
+CLN_SHAPES = [(2, 1024, 96), (3, 256, 192), (2, 256, 384), (4, 64, 96)]
+
+
+def _cln_inputs(b, l, c, seed):
+    """Scale and shift differ by image and channel, so that a tile that read
+    another image's row would disagree."""
+    x, w1, b1, w2, b2, dy = _mlp_inputs(b * l, c, seed)
+    g = torch.Generator().manual_seed(seed + 50)
+    scale = (1.0 + 0.5 * torch.randn(b, c, generator=g)).cuda()
+    shift = (0.5 * torch.randn(b, c, generator=g)).cuda()
+    return x.view(b, l, c), w1, b1, w2, b2, scale, shift, dy.view(b, l, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,c", CLN_SHAPES)
+def test_mlp_cln_kernel_matches_plain(b, l, c):
+    _needs_card()
+    x, w1, b1, w2, b2, scale, shift, _ = _cln_inputs(b, l, c, 4)
+    before = mlp_op.mlp_cln.launches
+    out = mlp_op.mlp_cln(x, w1, b1, w2, b2, scale, shift)
+    assert mlp_op.mlp_cln.launches == before + 1
+    _close(out, mlp_op.mlp_cln_plain(x, w1, b1, w2, b2, scale, shift, 1e-5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,c", CLN_SHAPES)
+def test_mlp_cln_bwd_kernel_matches_plain(b, l, c):
+    _needs_card()
+    x, w1, b1, w2, b2, scale, _, dy = _cln_inputs(b, l, c, 5)
+    args = (x, w1, b1, w2, b2, scale, 1e-5, dy)
+    before = mlp_op.mlp_cln_bwd.launches
+    out = mlp_op.mlp_cln_bwd(*args)
+    assert mlp_op.mlp_cln_bwd.launches == before + 1
+    ref = mlp_op.mlp_cln_bwd_plain(*args)
+    _close(out[0], ref[0])
+    for a, r in zip(out[1:], ref[1:]):
+        assert a.shape == r.shape and a.dtype == torch.float32
+        assert _rel(a, r) <= SUM_TOL
+    again = mlp_op.mlp_cln_bwd(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, r) for a, r in zip(out, again)), "not bit-identical"
+
+
+@pytest.mark.cuda
+def test_mlp_cln_function_matches_autograd_of_plain():
+    _needs_card()
+    x, w1, b1, w2, b2, scale, shift, dy = _cln_inputs(2, 256, 96, 6)
+    grads = []
+    for fn in (mlp_op.mlp_cln, lambda *a: mlp_op.mlp_cln_plain(*a, 1e-5)):
+        leaves = [a.clone().requires_grad_() for a in (x, w1, b1, w2, b2, scale, shift)]
+        fn(*leaves).backward(dy)
+        grads.append([a.grad for a in leaves])
+    for a, b in zip(*grads):
+        assert _rel(a, b) <= AUTOGRAD_TOL
+
+
+def _separate(qkv, h):
+    n, t, c3 = qkv.shape
+    return [a.contiguous() for a in qkv.reshape(n, t, 3, h, c3 // (3 * h)).unbind(2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,h,d,shifted", ATTN_GEOMS)
+def test_fused_window_attention_kernels_match_plain(t, h, d, shifted):
+    _needs_card()
+    qkv, _, bm, scale, do = _attention_inputs(t, h, d, shifted, 7)
+    q, k, v = _separate(qkv, h)
+    do = do.view(q.shape)
+    before = (wa.fused_window_attention.launches, wa.fused_window_attention_bwd.launches)
+    out = wa._forward_sep(q, k, v, bm, scale)
+    _close(out, wa.attention_plain(q, k, v, bm, scale))
+    grads = wa.fused_window_attention_bwd(q, k, v, bm, scale, do)
+    assert (wa.fused_window_attention.launches, wa.fused_window_attention_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    ref = wa.attention_bwd_plain(q, k, v, bm, scale, do)
+    for a, r in zip(grads[:3], ref[:3]):
+        _close(a, r)
+    for a, r in zip(grads[3:], ref[3:]):
+        assert a.shape == r.shape and _rel(a, r) <= SUM_TOL
+    again = wa.fused_window_attention_bwd(q, k, v, bm, scale, do)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, r) for a, r in zip(grads, again)), "not bit-identical"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["nhtd", "nthd", "nhdt", "nhdt_packed"])
+def test_fused_window_attention_op_layouts_match_plain(layout):
+    """The public op on the card against the same op on the CPU (the plain
+    versions), output and gradients, in each layout."""
+    _needs_card()
+    t, h, d, p = 16, 24, 32, 8
+    qkv, _, bm, scale, do = _attention_inputs(t, h, d, False, 8)
+    q, k, v = _separate(qkv, h)
+    to_layout = {
+        "nthd": lambda a: a,
+        "nhtd": lambda a: a.permute(0, 2, 1, 3).contiguous(),
+        "nhdt": lambda a: a.permute(0, 2, 3, 1).contiguous(),
+        "nhdt_packed": lambda a: a.reshape(a.shape[0], t, h // p, p, d)
+        .permute(0, 2, 4, 3, 1).reshape(a.shape[0], h // p, d, p * t).contiguous()}[layout]
+    inputs = [to_layout(a) for a in (q, k, v)] + [bm[0], torch.zeros(1, t, t, device="cuda"),
+                                                  scale]
+    cot = to_layout(do.view(q.shape))
+    results = []
+    for dev in ("cuda", "cpu"):
+        leaves = [a.to(dev).clone().requires_grad_() for a in inputs]
+        out = wa.fused_window_attention(*leaves, layout=layout)
+        out.backward(cot.to(dev))
+        results.append([out.detach()] + [a.grad for a in leaves])
+    got, ref = results
+    assert got[0].shape == inputs[0].shape
+    for a, r in zip(got[:4], ref[:4]):
+        _close(a, r)
+    for a, r in zip(got[4:], ref[4:]):
+        assert _rel(a.cpu(), r) <= SUM_TOL
+
+
+@pytest.mark.cuda
+def test_fused_window_attention_fp32_on_card_raises():
+    _needs_card()
+    q = torch.randn(2, 16, 2, 32, device="cuda")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        wa.fused_window_attention(q, q, q, torch.zeros(2, 16, 16, device="cuda"),
+                                  torch.zeros(1, 16, 16, device="cuda"),
+                                  torch.ones(2, device="cuda"), layout="nthd")
