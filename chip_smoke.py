@@ -6,10 +6,13 @@
 Phases, one JSON line each (any failure ends the run with a non-zero exit):
 
 1. environment: versions, the card (nvidia-smi name and power limit on a
-   line of its own), the nvcc build of every kernel from csrc/, TF32 off;
+   line of its own), the nvcc build of every kernel from csrc/ (ptxas
+   lines, and the registers, spills and shared memory of every
+   instantiation of the two attention kernels), TF32 off;
 2. kernels: each hand-written kernel against its plain PyTorch version on
    the card, bf16, at every shape the ScOT-B batch-32 serving path gives it
-   (and ScOT-L's), with kernel / plain / library times (CUDA events, median
+   (and ScOT-L's; the attention also at ScOT-T's, D = 16, and at one 7x7
+   window, T = 49), with kernel / plain / library times (CUDA events, median
    of 20 after warm-up) and the least time the card could take (bound);
 3. model: ScOT-B, 128x128, 4 channels, bf16, batch 32, seeded random
    weights, the attention's position bias, logit scales and q/v biases
@@ -24,7 +27,8 @@ Phases, one JSON line each (any failure ends the run with a non-zero exit):
 5. rollout: autoregressive_rollout with ar_steps=4 on the same model,
    launches counted the same way;
 6. backward kernels: each backward kernel against its plain version on the
-   card, bf16, at every ScOT-B and ScOT-L batch-32 shape, with the max abs
+   card, bf16, at every ScOT-B and ScOT-L batch-32 shape (the attention's
+   also at ScOT-T's and T = 49), with the max abs
    error and relative L2 of every output, kernel / plain / library times
    (the library time is the autograd backward of the forward's library
    call), the bound, and two calls on the same inputs compared bit for bit;
@@ -43,7 +47,8 @@ Phases, one JSON line each (any failure ends the run with a non-zero exit):
    shift that differ by image and channel, times and bounds as in 2 and 6;
 10. separate-q/k/v attention: the op ``poseidon_tpu_torch.ops.
    fused_window_attention`` forward and backward through autograd at every
-   ScOT-B and ScOT-L attention shape (nthd) and at one shape in each other
+   ScOT-B, ScOT-L and ScOT-T attention shape and T = 49 (nthd) and at one
+   shape in each other
    layout, counts reset just before and read just after; then its two
    kernels against their plain versions at each shape, with times;
 11. fused-tail model, train and train profile: phases 3, 7 and 8 under
@@ -51,7 +56,10 @@ Phases, one JSON line each (any failure ends the run with a non-zero exit):
    its weights in the non-zero-gradient check), launches 64 attention and 32
    tail kernels per forward, 64/64/32/32 per step;
 12. the unfused and fused-tail forward and train step timed in turns;
-13. the kernels line; 14. the device line, last.
+13. ScOT-T (head width 16 at every stage): phases 3 and 7 on its model
+   ("model_T", "train_T"), launches one attention kernel per block and the
+   MLP kernel at stage 1 (C = 96);
+14. the kernels line; 15. the device line, last.
 
 Exits non-zero without printing results when CUDA is absent.
 """
@@ -99,6 +107,27 @@ def cuda_ms(fn, iters: int = ITERS, warmup: int = 3) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+def device_ms(fn, iters: int = 10) -> float:
+    """Device time of one call: torch.profiler's device-side kernel time over
+    ``iters`` calls, divided by ``iters``. Unlike ``cuda_ms`` it leaves out
+    the host's gaps between a call's launches (its wrapper, allocations)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(dev_us(e) for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    return total / 1e3 / iters
+
+
+def dev_us(evt):
+    return getattr(evt, "self_device_time_total", None) or getattr(evt, "self_cuda_time_total", 0)
+
+
 def host_ms(fn, iters: int, warmup: int = 2) -> float:
     """Median wall time of one call that ends in a synchronize."""
     for _ in range(warmup):
@@ -113,7 +142,7 @@ def host_ms(fn, iters: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def phase_environment(build):
+def phase_environment(build, wa):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     card = smi.splitlines()[torch.cuda.current_device()] if smi else ""
@@ -124,13 +153,15 @@ def phase_environment(build):
     seconds = build.build()
     wall = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in build.build_log(name).splitlines()
-                    if "registers" in ln or "spill" in ln]
+                    if "registers" in ln or "spill" in ln
+                    or ("window_attention" in name and "Compiling entry" in ln)]
              for name in build.SOURCES}
     emit({"phase": "environment", "python": sys.version.split()[0], "torch": torch.__version__,
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
           "nvidia_smi": card, "csrc": str(build.CSRC), "build_dir": str(build.BUILD_DIR),
           "nvcc_seconds": seconds, "build_wall_s": wall,
-          "ptxas": ptxas, "tf32": "off for matmul and cudnn (comparisons in full fp32/bf16)"})
+          "ptxas": ptxas, "attention_kernels": wa.kernel_info(),
+          "tf32": "off for matmul and cudnn (comparisons in full fp32/bf16)"})
     return card
 
 
@@ -153,6 +184,19 @@ def attention_shapes(cfg, batch):
             nw_img = (res // window) ** 2
             out.append((f"stage{i}{'_shifted' if shift else ''}", batch * nw_img,
                         window * window, heads, d, nw_img if shift else 1, window, res, shift))
+    return out
+
+
+def attention_cases(pt):
+    """(model, tag, n_windows, T, heads, D, nW, window, res, shift) of every
+    attention block kind of ScOT-B, ScOT-L and ScOT-T (D = 16) at batch 32 on
+    128x128 inputs, and one 7x7 window (T = 49, the config's default window
+    size) at ScOT-B's stage-0 width, shifted, on a 28x28 token map ("W7")."""
+    out = []
+    for name in ("B", "L", "T"):
+        cfg = pt.make_config(name, image_size=128, num_channels=4, num_out_channels=4)
+        out += [(name, *geo) for geo in attention_shapes(cfg, BATCH)]
+    out.append(("W7", "T49_shifted", BATCH * 16, 49, 3, 32, 16, 7, 28, 3))
     return out
 
 
@@ -279,31 +323,35 @@ def phase_kernels(pt, wa, mlp_op, attn_mod, bound_ms, card):
     cfg_b = pt.make_config("B", image_size=128, num_channels=4, num_out_channels=4)
     cfg_l = pt.make_config("L", image_size=128, num_channels=4, num_out_channels=4)
     results = {"attention": [], "mlp": []}
+    for model_name, tag, n, t, heads, d, nw, window, res, shift in attention_cases(pt):
+        qkv, qb, bm, scale = attention_case(attn_mod, n, t, heads, d, nw, window,
+                                            res, shift, gen)
+        out = wa.window_attention(qkv, qb, bm, scale, heads)
+        ref = wa.window_attention_plain(qkv, qb, bm, scale, heads)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs()
+        ok = bool(torch.isfinite(out.float()).all()) and bool(
+            (err <= ATTN_TOL + ATTN_TOL * ref.float().abs()).all())
+        bms, by = attention_bound(n, t, heads, d, nw, bound_ms)
+        row = {"phase": "kernel", "kernel": "window_attention_fwd", "model": model_name,
+               "shape": f"{tag}: windows={n} T={t} H={heads} D={d} nW={nw}",
+               "max_abs_err": float(err.max()), "tol": f"allclose atol=rtol={ATTN_TOL}",
+               "ok": ok,
+               "kernel_ms": cuda_ms(lambda: wa.window_attention(qkv, qb, bm, scale, heads)),
+               "plain_ms": cuda_ms(lambda: wa.window_attention_plain(qkv, qb, bm, scale, heads)),
+               "library_ms": cuda_ms(attention_library_call(*split_qkv(qkv, qb, heads),
+                                                            bm, scale)),
+               "kernel_device_ms": device_ms(lambda: wa.window_attention(qkv, qb, bm, scale,
+                                                                         heads)),
+               "library_device_ms": device_ms(attention_library_call(
+                   *split_qkv(qkv, qb, heads), bm, scale)),
+               "bound_ms": bms, "bound_by": by, "card": card}
+        emit(row)
+        results["attention"].append(row)
+        if not ok:
+            raise SystemExit(f"window_attention kernel disagrees at {row['shape']}")
+        del qkv, out, ref
     for model_name, cfg in (("B", cfg_b), ("L", cfg_l)):
-        for tag, n, t, heads, d, nw, window, res, shift in attention_shapes(cfg, BATCH):
-            qkv, qb, bm, scale = attention_case(attn_mod, n, t, heads, d, nw, window,
-                                                res, shift, gen)
-            out = wa.window_attention(qkv, qb, bm, scale, heads)
-            ref = wa.window_attention_plain(qkv, qb, bm, scale, heads)
-            torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs()
-            ok = bool(torch.isfinite(out.float()).all()) and bool(
-                (err <= ATTN_TOL + ATTN_TOL * ref.float().abs()).all())
-            bms, by = attention_bound(n, t, heads, d, nw, bound_ms)
-            row = {"phase": "kernel", "kernel": "window_attention_fwd", "model": model_name,
-                   "shape": f"{tag}: windows={n} T={t} H={heads} D={d} nW={nw}",
-                   "max_abs_err": float(err.max()), "tol": f"allclose atol=rtol={ATTN_TOL}",
-                   "ok": ok,
-                   "kernel_ms": cuda_ms(lambda: wa.window_attention(qkv, qb, bm, scale, heads)),
-                   "plain_ms": cuda_ms(lambda: wa.window_attention_plain(qkv, qb, bm, scale, heads)),
-                   "library_ms": cuda_ms(attention_library_call(*split_qkv(qkv, qb, heads),
-                                                                bm, scale)),
-                   "bound_ms": bms, "bound_by": by, "card": card}
-            emit(row)
-            results["attention"].append(row)
-            if not ok:
-                raise SystemExit(f"window_attention kernel disagrees at {row['shape']}")
-            del qkv, out, ref
         for tag, m, c, f in mlp_shapes(cfg, BATCH, mlp_op):
             x, w1, b1, w2, b2 = mlp_case(m, c, f, gen)
             out = mlp_op.mlp(x, w1, b1, w2, b2)
@@ -334,36 +382,39 @@ def phase_kernels(pt, wa, mlp_op, attn_mod, bound_ms, card):
 def phase_bwd_kernels(pt, wa, mlp_op, attn_mod, bound_ms, card):
     gen = torch.Generator().manual_seed(4)
     results = {"attention": [], "mlp": []}
+    for model_name, tag, n, t, heads, d, nw, window, res, shift in attention_cases(pt):
+        qkv, qb, bm, scale = attention_case(attn_mod, n, t, heads, d, nw, window,
+                                            res, shift, gen)
+        do = torch.randn(n, t, heads * d, generator=gen).to("cuda", torch.bfloat16)
+        args = (qkv, qb, bm, scale, heads, do)
+        out = wa.window_attention_bwd(*args)
+        again = wa.window_attention_bwd(*args)
+        ref = wa.window_attention_bwd_plain(*args)
+        torch.cuda.synchronize()
+        errs = compare(("dqkv", "dqb", "dbm", "dscale"), out, ref)
+        ok = backward_ok(errs, out, ref, again, ATTN_TOL)
+        bms, by = attention_bwd_bound(n, t, heads, d, nw, bound_ms)
+        row = {"phase": "bwd_kernel", "kernel": "window_attention_bwd", "model": model_name,
+               "shape": f"{tag}: windows={n} T={t} H={heads} D={d} nW={nw}",
+               "groups": wa.bwd_groups(n, nw, heads, t), "errors": errs,
+               "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+               "tol": f"dqkv allclose atol=rtol={ATTN_TOL}; dqb, dbm, dscale rel L2 <= "
+                      f"{SUM_REL_TOL}; second call bit-identical", "ok": ok,
+               "kernel_ms": cuda_ms(lambda: wa.window_attention_bwd(*args)),
+               "plain_ms": cuda_ms(lambda: wa.window_attention_bwd_plain(*args)),
+               "library_ms": cuda_ms(attention_library_bwd(*split_qkv(qkv, qb, heads),
+                                                           bm, scale, do)),
+               "kernel_device_ms": device_ms(lambda: wa.window_attention_bwd(*args)),
+               "library_device_ms": device_ms(attention_library_bwd(
+                   *split_qkv(qkv, qb, heads), bm, scale, do)),
+               "bound_ms": bms, "bound_by": by, "card": card}
+        emit(row)
+        results["attention"].append(row)
+        if not ok:
+            raise SystemExit(f"window_attention_bwd kernel disagrees at {row['shape']}")
+        del qkv, do, out, again, ref
     for model_name in ("B", "L"):
         cfg = pt.make_config(model_name, image_size=128, num_channels=4, num_out_channels=4)
-        for tag, n, t, heads, d, nw, window, res, shift in attention_shapes(cfg, BATCH):
-            qkv, qb, bm, scale = attention_case(attn_mod, n, t, heads, d, nw, window,
-                                                res, shift, gen)
-            do = torch.randn(n, t, heads * d, generator=gen).to("cuda", torch.bfloat16)
-            args = (qkv, qb, bm, scale, heads, do)
-            out = wa.window_attention_bwd(*args)
-            again = wa.window_attention_bwd(*args)
-            ref = wa.window_attention_bwd_plain(*args)
-            torch.cuda.synchronize()
-            errs = compare(("dqkv", "dqb", "dbm", "dscale"), out, ref)
-            ok = backward_ok(errs, out, ref, again, ATTN_TOL)
-            bms, by = attention_bwd_bound(n, t, heads, d, nw, bound_ms)
-            row = {"phase": "bwd_kernel", "kernel": "window_attention_bwd", "model": model_name,
-                   "shape": f"{tag}: windows={n} T={t} H={heads} D={d} nW={nw}",
-                   "groups": wa.bwd_groups(n, nw, heads, t), "errors": errs,
-                   "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
-                   "tol": f"dqkv allclose atol=rtol={ATTN_TOL}; dqb, dbm, dscale rel L2 <= "
-                          f"{SUM_REL_TOL}; second call bit-identical", "ok": ok,
-                   "kernel_ms": cuda_ms(lambda: wa.window_attention_bwd(*args)),
-                   "plain_ms": cuda_ms(lambda: wa.window_attention_bwd_plain(*args)),
-                   "library_ms": cuda_ms(attention_library_bwd(*split_qkv(qkv, qb, heads),
-                                                               bm, scale, do)),
-                   "bound_ms": bms, "bound_by": by, "card": card}
-            emit(row)
-            results["attention"].append(row)
-            if not ok:
-                raise SystemExit(f"window_attention_bwd kernel disagrees at {row['shape']}")
-            del qkv, do, out, again, ref
         for tag, m, c, f in mlp_shapes(cfg, BATCH, mlp_op):
             x, w1, b1, w2, b2 = mlp_case(m, c, f, gen)
             dy = torch.randn(m, c, generator=gen).to("cuda", torch.bfloat16)
@@ -539,19 +590,16 @@ def to_layout(x, layout, pack):
 def phase_fused_attention(pt, wa, mlp_op, attn_mod, bound_ms, card):
     """The separate-q/k/v op ``poseidon_tpu_torch.ops.fused_window_attention``.
     First its path: the counts set to 0, then forward and backward through
-    the op (autograd) at every ScOT-B and ScOT-L batch-32 attention shape in
-    the nthd layout and at ScOT-B stage 2 in each other layout (head packing
+    the op (autograd) at every ``attention_cases`` shape in the nthd layout and at ScOT-B stage 2 in each other layout (head packing
     P = 4 there, as the JAX op packs), outputs against the plain version, the
     counts read. Then each kernel against its plain version at each nthd
     shape, with times."""
     gen = torch.Generator().manual_seed(8)
     cases = []
-    for model_name in ("B", "L"):
-        cfg = pt.make_config(model_name, image_size=128, num_channels=4, num_out_channels=4)
-        for tag, *geo in attention_shapes(cfg, BATCH):
-            cases.append((model_name, tag, "nthd", geo))
-            if model_name == "B" and tag == "stage2":
-                cases += [(model_name, tag, lay, geo) for lay in ("nhtd", "nhdt", "nhdt_packed")]
+    for model_name, tag, *geo in attention_cases(pt):
+        cases.append((model_name, tag, "nthd", geo))
+        if model_name == "B" and tag == "stage2":
+            cases += [(model_name, tag, lay, geo) for lay in ("nhtd", "nhdt", "nhdt_packed")]
     reset_counts(wa, mlp_op)
     path_rows = []
     for model_name, tag, layout, (n, t, heads, d, nw, window, res, shift) in cases:
@@ -579,8 +627,8 @@ def phase_fused_attention(pt, wa, mlp_op, attn_mod, bound_ms, card):
     want = launches(fused_window_attention_fwd=len(cases), fused_window_attention_bwd=len(cases))
     ok = counts == want
     emit({"phase": "fused_attention_path", "what": "fused_window_attention forward + backward "
-          "(autograd) at every ScOT-B and ScOT-L b32 attention shape (nthd) and ScOT-B stage 2 "
-          "in nhtd, nhdt, nhdt_packed", "cases": path_rows, "launches": counts, "ok": ok,
+          "(autograd) at every ScOT-B, ScOT-L and ScOT-T b32 attention shape and T=49 (nthd) "
+          "and ScOT-B stage 2 in nhtd, nhdt, nhdt_packed", "cases": path_rows, "launches": counts, "ok": ok,
           "tol": f"output allclose atol=rtol={ATTN_TOL} vs the plain version", "card": card})
     if not ok:
         raise SystemExit("fused_window_attention path launched other kernels than expected")
@@ -606,6 +654,8 @@ def phase_fused_attention(pt, wa, mlp_op, attn_mod, bound_ms, card):
                "kernel_ms": cuda_ms(lambda: wa._forward_sep(q, k, v, bm, scale)),
                "plain_ms": cuda_ms(lambda: wa.attention_plain(q, k, v, bm, scale)),
                "library_ms": cuda_ms(attention_library_call(q, k, v, bm, scale)),
+               "kernel_device_ms": device_ms(lambda: wa._forward_sep(q, k, v, bm, scale)),
+               "library_device_ms": device_ms(attention_library_call(q, k, v, bm, scale)),
                "bound_ms": bms, "bound_by": by, "card": card}
         emit(row)
         results["fwd"].append(row)
@@ -627,6 +677,8 @@ def phase_fused_attention(pt, wa, mlp_op, attn_mod, bound_ms, card):
                "kernel_ms": cuda_ms(lambda: wa.fused_window_attention_bwd(*args)),
                "plain_ms": cuda_ms(lambda: wa.attention_bwd_plain(*args)),
                "library_ms": cuda_ms(attention_library_bwd(*args)),
+               "kernel_device_ms": device_ms(lambda: wa.fused_window_attention_bwd(*args)),
+               "library_device_ms": device_ms(attention_library_bwd(*args)),
                "bound_ms": bms, "bound_by": by, "card": card}
         emit(row)
         results["bwd"].append(row)
@@ -700,12 +752,24 @@ def perturb_attention(model, attention_cls, gen, tail=False):
                 draw(s.value.bias, 0.05)
 
 
-def phase_model(pt, wa, mlp_op, attn_mod, card, fused_tail=False):
-    """The ScOT-B forward, kernel path against plain path; with
-    ``fused_tail``, under ``fused_block_tail=True`` (phase "fused_tail_model",
-    the MLP + norm + residual kernel at stages 0-1 in place of the MLP
-    kernel), the post-MLP norm scales set to about 1 as well."""
-    cfg = pt.make_config("B", image_size=128, num_channels=4, num_out_channels=4,
+def block_kernels(model, mlp_op, fused_tail=False):
+    """(Swin blocks, blocks that take the MLP kernel, blocks that take the
+    fused tail) of a model: the kernel launches its forward should make."""
+    from poseidon_tpu_torch.models.scot import SwinBlock
+    blocks = [m for m in model.modules() if isinstance(m, SwinBlock)]
+    shapes = [(b.intermediate.dense.in_features, b.resolution ** 2) for b in blocks]
+    tail = sum(1 for c, l in shapes if fused_tail and mlp_op.use_fused_tail(c, l))
+    mlp = sum(1 for c, l in shapes if mlp_op.use_mlp_kernel(c, l)) - tail
+    return len(blocks), mlp, tail
+
+
+def phase_model(pt, wa, mlp_op, attn_mod, card, fused_tail=False, size="B"):
+    """The ScOT-B (or ``size``) forward, kernel path against plain path;
+    with ``fused_tail``, under ``fused_block_tail=True`` (phase
+    "fused_tail_model", the MLP + norm + residual kernel at stages 0-1 in
+    place of the MLP kernel), the post-MLP norm scales set to about 1 as
+    well. Phase "model_T" is ScOT-T's (D = 16 at every stage)."""
+    cfg = pt.make_config(size, image_size=128, num_channels=4, num_out_channels=4,
                          channel_slice_list=(0, 1, 3, 4), use_conditioning=True,
                          attention_impl="pallas", fused_block_tail=fused_tail)
     t0 = time.perf_counter()
@@ -730,12 +794,14 @@ def phase_model(pt, wa, mlp_op, attn_mod, card, fused_tail=False):
         fwd_ms = host_ms(lambda: model(x, t), iters=5)
         plain_fwd_ms = host_ms(lambda: plain(x, t), iters=5)
     rel = float((y - y_plain).norm() / y_plain.norm())
-    want = (launches(window_attention_fwd=64, mlp_cln_fwd=32) if fused_tail
-            else launches(window_attention_fwd=64, fused_mlp_fwd=32))
+    blocks, mlp, tail = block_kernels(model, mlp_op, fused_tail)
+    want = (launches(window_attention_fwd=blocks, mlp_cln_fwd=tail, fused_mlp_fwd=mlp)
+            if fused_tail else launches(window_attention_fwd=blocks, fused_mlp_fwd=mlp))
     ok = (tuple(y.shape) == (BATCH, 4, 128, 128) and bool(torch.isfinite(y).all())
           and rel <= MODEL_REL_TOL and counts == want)
-    emit({"phase": "fused_tail_model" if fused_tail else "model",
-          "model": "ScOT-B 128x128 c4 bf16 conditioned"
+    suffix = "" if size == "B" else f"_{size}"
+    emit({"phase": "fused_tail_model" if fused_tail else "model" + suffix,
+          "model": f"ScOT-{size} 128x128 c4 bf16 conditioned"
                    + (", fused_block_tail" if fused_tail else ""), "batch": BATCH,
           "weights": "seed 0 init; CPB MLP, logit scales, q/v biases redrawn (seed 3); "
                      "embedding and post-attention norm scales 1"
@@ -747,7 +813,7 @@ def phase_model(pt, wa, mlp_op, attn_mod, card, fused_tail=False):
           "plain_path_forward_ms": plain_fwd_ms, "launches_per_forward": counts,
           "ok": ok, "card": card})
     if not ok:
-        raise SystemExit(f"{'fused_tail_' if fused_tail else ''}model phase failed")
+        raise SystemExit(f"{'fused_tail_' if fused_tail else ''}model phase failed (ScOT-{size})")
     return model, x, t, counts, fwd_ms
 
 
@@ -817,8 +883,8 @@ BLOCK_GRADS = ("attention.self.query.weight", "attention.self.key.weight",
 TAIL_GRADS = BLOCK_GRADS + ("layernorm_after.weight.weight", "layernorm_after.bias.weight")
 
 
-def phase_train(pt, wa, mlp_op, model, card, fused_tail=False):
-    """The ScOT-B train step on the card: gradients of the kernel path
+def phase_train(pt, wa, mlp_op, model, card, fused_tail=False, size="B"):
+    """The ScOT-B (or the model's size) train step on the card: gradients of the kernel path
     against the plain path on the same weights and batch, launches per
     step, then TRAIN_STEPS steps on that batch (lr 1e-4, weight decay 1e-6,
     cosine over 10,000 steps, clip 5.0, as bench.py) and the step's time.
@@ -864,16 +930,16 @@ def phase_train(pt, wa, mlp_op, model, card, fused_tail=False):
     torch.cuda.reset_peak_memory_stats()
     step_ms = host_ms(step, iters=5)
     peak = torch.cuda.max_memory_allocated()
-    want = (launches(window_attention_fwd=64, window_attention_bwd=64, mlp_cln_fwd=32,
-                     mlp_cln_bwd=32) if fused_tail
-            else launches(window_attention_fwd=64, window_attention_bwd=64, fused_mlp_fwd=32,
-                          fused_mlp_bwd=32))
-    ok = (not bad and not zero and blocks_checked == 64 and rel <= GRAD_REL_TOL
+    blocks, mlp, tail = block_kernels(model, mlp_op, fused_tail)
+    want = launches(window_attention_fwd=blocks, window_attention_bwd=blocks, mlp_cln_fwd=tail,
+                    mlp_cln_bwd=tail, fused_mlp_fwd=mlp, fused_mlp_bwd=mlp)
+    ok = (not bad and not zero and blocks_checked == blocks and rel <= GRAD_REL_TOL
           and math.isfinite(loss_kernel) and abs(loss_kernel - loss_plain) <= GRAD_REL_TOL * abs(loss_plain)
           and grad_counts == want and step_counts == want
           and all(math.isfinite(v) for v in losses) and losses[-1] < losses[0])
-    emit({"phase": "fused_tail_train" if fused_tail else "train",
-          "model": "ScOT-B 128x128 c4 bf16 conditioned, fp32 parameters"
+    suffix = "" if size == "B" else f"_{size}"
+    emit({"phase": "fused_tail_train" if fused_tail else "train" + suffix,
+          "model": f"ScOT-{size} 128x128 c4 bf16 conditioned, fp32 parameters"
                    + (", fused_block_tail" if fused_tail else ""),
           "batch": BATCH, "weights": "those of the model phase",
           "loss_kernel_path": loss_kernel, "loss_plain_path": loss_plain,
@@ -887,7 +953,7 @@ def phase_train(pt, wa, mlp_op, model, card, fused_tail=False):
           "samples_per_s": BATCH / (step_ms / 1e3), "peak_memory_gib": peak / 2 ** 30,
           "ok": ok, "card": card})
     if not ok:
-        raise SystemExit(f"{'fused_tail_' if fused_tail else ''}train phase failed")
+        raise SystemExit(f"{'fused_tail_' if fused_tail else ''}train phase failed (ScOT-{size})")
     return step, step_counts, step_ms
 
 
@@ -906,9 +972,6 @@ def device_time_profile(fn, wall_ref_ms):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
 
-    def dev_us(evt):
-        return getattr(evt, "self_device_time_total", None) or getattr(evt, "self_cuda_time_total", 0)
-
     # Device-side events only (kernels, memcpy/memset): the CPU ops that
     # launched them carry the same time again, and so do the spans that
     # user annotations (the optimizer's "Optimizer.step#AdamW.step") leave on
@@ -921,9 +984,10 @@ def device_time_profile(fn, wall_ref_ms):
     groups = {}
     for e in kernels:
         name = e.key.lower()
-        if any(k in name for k in ("window_attention_fwd_kernel", "mlp_fwd_kernel", "attn_bwd_",
-                                   "mlp_bwd_", "mlp_cln_")):
-            g = "port kernels"
+        if any(k in name for k in ("window_attention_fwd_kernel", "attn_bwd_")):
+            g = "port attention kernels"
+        elif any(k in name for k in ("mlp_fwd_kernel", "mlp_bwd_", "mlp_cln_")):
+            g = "port MLP kernels"
         elif "multi_tensor_apply" in name:
             g = "optimizer (multi-tensor AdamW)"
         elif any(k in name for k in ("gemm", "xmma", "cutlass", "sm90", "cublas")):
@@ -985,6 +1049,9 @@ def kernels_line(results, bwd_results, cln_results, op_results, per_forward, rol
                 "max_abs_err": max(r["max_abs_err"] for r in b_rows),
                 "ms": row["kernel_ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                **({"device_ms": row["kernel_device_ms"],
+                    "library_device_ms": row["library_device_ms"]}
+                   if "kernel_device_ms" in row else {}),
                 "shape": "ScOT-B b32 " + row["shape"]}
 
     def main_path(name):
@@ -996,6 +1063,7 @@ def kernels_line(results, bwd_results, cln_results, op_results, per_forward, rol
                 "fused_tail_train_step_launches": tail_counts[name]}
 
     csrc = "poseidon_tpu_torch/csrc/"
+    op_path = "fused_window_attention forward + backward, every ScOT-B/L/T shape and T=49"
     return {"kernels": [
         entry("window_attention_fwd", csrc + "window_attention.cu",
               "poseidon_tpu/ops/window_attention.py:131", results["attention"], "stage0_shifted",
@@ -1012,10 +1080,10 @@ def kernels_line(results, bwd_results, cln_results, op_results, per_forward, rol
               **main_path("fused_mlp_bwd")),
         entry("fused_window_attention_fwd", csrc + "window_attention.cu",
               "poseidon_tpu/ops/window_attention.py:126", op_results["fwd"], "stage0_shifted",
-              op_counts, path="fused_window_attention forward + backward, every ScOT-B/L shape"),
+              op_counts, path=op_path),
         entry("fused_window_attention_bwd", csrc + "window_attention_bwd.cu",
               "poseidon_tpu/ops/window_attention.py:201", op_results["bwd"], "stage0_shifted",
-              op_counts, path="fused_window_attention forward + backward, every ScOT-B/L shape"),
+              op_counts, path=op_path),
         entry("mlp_cln_fwd", csrc + "mlp_cln.cu", "poseidon_tpu/ops/mlp.py:272",
               cln_results["fwd"], "stage0", tail_counts, **tail_path("mlp_cln_fwd")),
         entry("mlp_cln_bwd", csrc + "mlp_cln_bwd.cu", "poseidon_tpu/ops/mlp.py:284",
@@ -1033,7 +1101,7 @@ def main() -> int:
     from poseidon_tpu_torch.ops import _build, mlp as mlp_op, window_attention as wa_mod
     from poseidon_tpu_torch.utils.device import bound_ms
 
-    card = phase_environment(_build)
+    card = phase_environment(_build, wa_mod)
     results = phase_kernels(pt, wa_mod, mlp_op, attn_mod, bound_ms, card)
     model, x, t, per_forward, forward_ms = phase_model(pt, wa_mod, mlp_op, attn_mod, card)
     phase_profile(model, x, t, forward_ms, card)
@@ -1049,6 +1117,10 @@ def main() -> int:
                                                        fused_tail=True)
     phase_train_profile(tail_step, tail_step_ms, card, fused_tail=True)
     phase_tail_vs_unfused(model, tail_model, x, t, step, tail_step, card)
+    del tail_model, tail_step
+    # ScOT-T (embed 48: D = 16 at every stage): forward and train step.
+    t_model, *_ = phase_model(pt, wa_mod, mlp_op, attn_mod, card, size="T")
+    phase_train(pt, wa_mod, mlp_op, t_model, card, size="T")
     emit(kernels_line(results, bwd_results, cln_results, op_results, per_forward,
                       rollout_counts, step_counts, tail_forward, tail_counts, op_counts))
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

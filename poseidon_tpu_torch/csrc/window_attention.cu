@@ -11,113 +11,51 @@
 //   S  = bf16(scale[h] * qn) . bf16(kn)^T  (fp32 accumulate)  + bm[n mod nW, h]
 //   e  = exp(S - max S);  O = bf16(e) . v / sum(e)            (fp32 softmax)
 // The Python wrapper and the plain PyTorch version with the same rounding
-// points are in ops/window_attention.py.
+// points are in ops/window_attention.py. T is any window size up to 256
+// (keys padded to NK = 64, 128 or 256 and masked), D is 16, 32 or 64.
 //
-// Layouts. The kernel reads q, k and v token-major from three base pointers
-// with one row stride: out of the fused QKV GEMM's output qkv (N, T, 3C),
-// columns [q | k | v] in (head, d) order, at offsets 0, C, 2C and stride 3C,
-// with no split or transpose copies; or from three (N, T, C) tensors at stride
-// C (the separate-q/k/v op, whose wrapper brings its four layouts to this
-// one). It writes O token-major as (N, T, C), columns in (head, d) order,
-// which is the A operand the output-projection GEMM takes as it is. Token-major rows make every q/k/v/O row of one head a contiguous
-// run of D bf16 values (64 or 128 bytes): D/8 lanes read it as 16-byte chunks.
+// Layouts. q, k and v are read token-major from three base pointers with one
+// row stride: out of the fused QKV GEMM's output (N, T, 3C) at offsets 0, C,
+// 2C and stride 3C, or from three (N, T, C) tensors at stride C. O is
+// written token-major as (N, T, C), the A operand of the output projection.
 //
 // Bound on this card. Per pair the kernel reads 3*T*D bf16 and writes T*D,
-// and does 4*T*T*D FLOPs in two products: T/2 FLOPs per byte (bm, nW*H*T*T
-// fp32, is read once for all images). At T = 256 that is 128, below the
-// H100's ~295 FLOP/B ridge, so the kernel is bound by device-memory bytes; at
-// T = 16 and 64 even more so. The design keeps everything between the reads
-// and the write on chip: the score rows (fp32) and probabilities (bf16) live
-// in shared memory and never touch device memory, which is what the plain
-// version pays for (an N*H*T*T fp32 score tensor, written and read several
-// times).
+// and does 4*T*T*D FLOPs: T/2 FLOPs per byte, below the H100's ~295 FLOP/B
+// ridge, so device-memory bytes bound it (bm, nW*H*T*T fp32, is read once
+// for all images in that count). What the design must avoid is the plain
+// version's N*H*T*T fp32 score tensors in device memory.
 //
-// Design. A CTA of 4 warps takes 64 consecutive query rows of the flattened
-// (pair, t) row space. At T = 256 that is a quarter of one pair; at T = 64 one
-// pair; at T = 16 four pairs (this replaces the TPU's block-diagonal head
-// packing). The CTA stages the keys of its pairs, L2-normalised and rounded to
-// bf16, and the raw values in shared memory (max(T, 64) rows), and its 64
-// query rows, normalised, scaled and rounded. Every thread first issues all
-// of its 16-byte loads (D/8 lanes per head row), then normalises them with
-// shuffles inside its lane group, so the loads are in flight together. Each
-// warp then owns 16 query rows of one pair: S = bm + Qs Kn^T by WMMA (the
-// accumulator starts from the bm rows, bf16 in, fp32 accumulate) into a
-// 16 x T fp32 strip; an fp32 softmax by rows with warp shuffles, writing
-// P = bf16(e) over the strip in place (row r of P only overlaps strip rows
-// <= r, already read); O = P V by WMMA; the 1/sum on the way out. The strip
-// and the staged K/V keep a T = 256, D = 32 CTA at 100 KB of shared memory,
-// two CTAs per SM. Tensor cores through WMMA only; wgmma/TMA are later work.
+// Design. A persistent CTA of one or two warpgroups walks (window, head)
+// pairs. For each pair it stages q, k and v once: cp.async copies the raw
+// rows into shared memory while the CTA still computes the previous pair,
+// then the CTA normalises them into the swizzled K-major tiles that the
+// wgmma descriptors read (Qs and Kn by rows, V transposed so that keys are
+// the reduction index of P.V). Each warpgroup takes 64-row query strips:
+//  - S = bm + Qs Kn^T is one chain of m64n64k16 wgmmas per 64 keys,
+//    accumulated in registers (NK/2 fp32 a thread). The accumulators start
+//    from the bm rows (keys past T at -inf): the bias loads land in the
+//    accumulator registers themselves, all in flight at once;
+//  - each row's exact max and sum are taken in registers with quad
+//    shuffles; no online rescaling, so the rounding point bf16(exp(S - max
+//    S)) and the fp32 sum stay the JAX kernel's (exp by the fast exponential,
+//    within about 2 ulp of expf);
+//  - P = bf16(e) is repacked in registers as the A operand of O = P V
+//    (m64nDk16, register A), 64 keys a commit group, the next group packed
+//    while the last one runs; no score or probability touches shared or
+//    device memory;
+//  - 1/sum is applied in registers, O goes through a small shared staging
+//    tile and leaves in 16-byte row stores.
+// The bias is read from L2 once per pair (each thread reads the bm values
+// of its accumulator elements): 4*T*T bytes a pair, 100 MB a call at
+// ScOT-B stage 0, which the bound counts once (1 MB). Registers bound
+// occupancy (S of a 64 x 256 strip: at most 246 a thread, no spills);
+// shared memory holds one pair's raw and staged tiles (at most 208 KB).
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
-#include <math.h>
+#include "attn_wgmma.cuh"
 
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+using namespace attn;
 
 namespace {
-
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
-constexpr int ROWS = 16 * WARPS;  // query rows per CTA
-constexpr float EPS = 1e-12f;     // torch F.normalize clamp
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// Sum over the aligned group of G lanes that share one head row.
-template <int G>
-__device__ __forceinline__ float group_sum(float v) {
-#pragma unroll
-  for (int o = G / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-__device__ __forceinline__ void unpack8(const uint4& raw, float* f) {
-  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const float2 a = __bfloat1622float2(p[k]);
-    f[2 * k] = a.x;
-    f[2 * k + 1] = a.y;
-  }
-}
-
-__device__ __forceinline__ uint4 pack8(const float* f) {
-  uint4 raw;
-  __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) p[k] = __floats2bfloat162_rn(f[2 * k], f[2 * k + 1]);
-  return raw;
-}
-
-// Shared-memory plan of one CTA (byte offsets; every region 32-byte aligned
-// for WMMA).
-template <int T, int D>
-struct Plan {
-  static constexpr int KR = T > ROWS ? T : ROWS;  // key/value rows staged
-  static constexpr int SW = T > D ? T : D;        // width of a warp's fp32 strip
-  static constexpr size_t q_off = 0;                                  // ROWS x D bf16
-  static constexpr size_t k_off = q_off + size_t(ROWS) * D * 2;       // KR x D bf16
-  static constexpr size_t v_off = k_off + size_t(KR) * D * 2;         // KR x D bf16
-  static constexpr size_t s_off = v_off + size_t(KR) * D * 2;         // WARPS x 16 x SW f32
-  static constexpr size_t den_off = s_off + size_t(WARPS) * 16 * SW * 4;  // ROWS f32
-  static constexpr size_t bytes = den_off + size_t(ROWS) * 4;
-};
 
 // q, k and v of token (n, t) and head h at q/k/v + (n T + t) ld + h D.
 struct QKV {
@@ -127,215 +65,247 @@ struct QKV {
   long long ld;
 };
 
-// qb (C,) is added to q where it is not null.
-template <int T, int D>
-__global__ void __launch_bounds__(THREADS)
-window_attention_fwd_kernel(QKV in, const float* __restrict__ qb,
-                            const float* __restrict__ bm, const float* __restrict__ scale,
-                            bf16* __restrict__ out, int n_win, int heads, int nw) {
-  using P = Plan<T, D>;
-  constexpr int LPR = D / 8;                        // lanes per head row, 16 B each
-  constexpr int KCH = P::KR * LPR / THREADS;        // K (and V) chunks per thread
-  constexpr int QCH = ROWS * LPR / THREADS;         // Q chunks per thread
-  constexpr int V = D / 32;                         // O values per lane in a row
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sq = reinterpret_cast<bf16*>(smem + P::q_off);
-  bf16* sk = reinterpret_cast<bf16*>(smem + P::k_off);
-  bf16* sv = reinterpret_cast<bf16*>(smem + P::v_off);
-  float* ss = reinterpret_cast<float*>(smem + P::s_off);
-  float* sden = reinterpret_cast<float*>(smem + P::den_off);
+template <int NK, int D>
+struct Plan {
+  static constexpr int QW = NK >= 128 ? 2 : 1;  // warpgroups
+  static constexpr int THREADS = 128 * QW;
+  static constexpr uint32_t TILE = NK * D * 2;  // one NK x D bf16 tile
+  static constexpr uint32_t raw_off = 0;                     // q, k, v raw, row-major
+  static constexpr uint32_t q_off = align1k(raw_off + 3 * TILE);  // Qs, rows NK, atoms of D
+  static constexpr uint32_t k_off = q_off + align1k(TILE);       // Kn, rows NK, atoms of D
+  static constexpr uint32_t vt_off = k_off + align1k(TILE);      // V^T, rows D, atoms of 64
+  static constexpr uint32_t o_off = vt_off + align1k(TILE);      // QW x 64 x D bf16
+  static constexpr uint32_t bytes = o_off + QW * 64 * D * 2;
+};
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int C = heads * D;
-  const long long total_rows = (long long)n_win * heads * T;
-  const long long row0 = (long long)blockIdx.x * ROWS;
-  const long long pair0 = row0 / T;
-  const long long key0 = pair0 * T;
-
-  // Issue every load first: K and V chunks of the staged key rows, Q chunks
-  // of the CTA's query rows. Rows past the end are zeros.
-  uint4 kraw[KCH], vraw[KCH], qraw[QCH];
-#pragma unroll
-  for (int it = 0; it < KCH; ++it) {
-    const int i = it * THREADS + tid, r = i / LPR, part = i % LPR;
-    const long long g = key0 + r;
-    kraw[it] = vraw[it] = make_uint4(0u, 0u, 0u, 0u);
-    if (g < total_rows) {
-      const long long pair = g / T, n = pair / heads;
-      const int t = (int)(g % T), h = (int)(pair % heads);
-      const long long off = (n * T + t) * in.ld + (long long)h * D + part * 8;
-      kraw[it] = *reinterpret_cast<const uint4*>(in.k + off);
-      vraw[it] = *reinterpret_cast<const uint4*>(in.v + off);
-    }
-  }
-#pragma unroll
-  for (int it = 0; it < QCH; ++it) {
-    const int i = it * THREADS + tid, r = i / LPR, part = i % LPR;
-    const long long g = row0 + r;
-    qraw[it] = make_uint4(0u, 0u, 0u, 0u);
-    if (g < total_rows) {
-      const long long pair = g / T, n = pair / heads;
-      const int t = (int)(g % T), h = (int)(pair % heads);
-      qraw[it] = *reinterpret_cast<const uint4*>(
-          in.q + (n * T + t) * in.ld + (long long)h * D + part * 8);
-    }
-  }
-  // Keys: L2-normalised, rounded; values as they are.
-#pragma unroll
-  for (int it = 0; it < KCH; ++it) {
-    const int i = it * THREADS + tid, r = i / LPR, part = i % LPR;
-    *reinterpret_cast<uint4*>(sv + r * D + part * 8) = vraw[it];
-    float f[8];
-    unpack8(kraw[it], f);
-    float ssq = 0.f;
-#pragma unroll
-    for (int e = 0; e < 8; ++e) ssq += f[e] * f[e];
-    const float nrm = fmaxf(sqrtf(group_sum<LPR>(ssq)), EPS);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) f[e] = f[e] / nrm;
-    *reinterpret_cast<uint4*>(sk + r * D + part * 8) = pack8(f);
-  }
-  // Queries: + bias (rounded) if any, normalised, scaled by the head's logit
-  // scale.
-#pragma unroll
-  for (int it = 0; it < QCH; ++it) {
-    const int i = it * THREADS + tid, r = i / LPR, part = i % LPR;
-    const long long g = row0 + r;
-    const int h = g < total_rows ? (int)((g / T) % heads) : 0;
-    float f[8];
-    unpack8(qraw[it], f);
-    if (qb != nullptr) {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) f[e] = round_bf16(f[e] + round_bf16(qb[h * D + part * 8 + e]));
-    }
-    float ssq = 0.f;
-#pragma unroll
-    for (int e = 0; e < 8; ++e) ssq += f[e] * f[e];
-    const float nrm = fmaxf(sqrtf(group_sum<LPR>(ssq)), EPS);
-    const float sc = scale[h];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) f[e] = (f[e] / nrm) * sc;
-    *reinterpret_cast<uint4*>(sq + r * D + part * 8) = pack8(f);
-  }
-  __syncthreads();
-
-  const long long wrow0 = row0 + warp * 16;
-  if (wrow0 >= total_rows) return;  // T and the row count are multiples of 16
-  const long long pair = wrow0 / T;
-  const int t0 = (int)(wrow0 % T);
-  const int koff = (int)((pair - pair0) * T);  // the pair's first staged key row
+template <int NK, int D>
+__device__ __forceinline__ void prefetch(const QKV& in, unsigned char* raw, long long pair,
+                                         int T, int heads) {
+  using P = Plan<NK, D>;
+  constexpr int LPR = D / 8;
   const long long n = pair / heads;
   const int h = (int)(pair % heads);
-  float* strip = ss + warp * 16 * P::SW;
-  bf16* prob = reinterpret_cast<bf16*>(strip);  // P over the strip, ldm T
-
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-  wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fk;
-  wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fv;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-
-  // S = bm + Qs Kn^T: 16 x T, fp32.
-  const float* bmp = bm + (((long long)(n % nw) * heads + h) * T + t0) * T;
-#pragma unroll
-  for (int j = 0; j < T / 16; ++j) {
-    wmma::load_matrix_sync(acc, bmp + j * 16, T, wmma::mem_row_major);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      wmma::load_matrix_sync(fa, sq + warp * 16 * D + kk * 16, D);
-      wmma::load_matrix_sync(fk, sk + (koff + j * 16) * D + kk * 16, D);
-      wmma::mma_sync(acc, fa, fk, acc);
-    }
-    wmma::store_matrix_sync(strip + j * 16, acc, P::SW, wmma::mem_row_major);
+  const uint32_t base = smem_addr(raw);
+  for (int i = threadIdx.x; i < 3 * NK * LPR; i += P::THREADS) {
+    const int which = i / (NK * LPR), r = (i / LPR) % NK, part = i % LPR;
+    const bf16* src = which == 0 ? in.q : which == 1 ? in.k : in.v;
+    const bool valid = r < T;
+    const bf16* g = src + (n * T + (valid ? r : 0)) * in.ld + (long long)h * D + part * 8;
+    cp_async16(base + which * P::TILE + (uint32_t)(r * D + part * 8) * 2, g, valid);
   }
-  __syncwarp();
+  cp_async_commit();
+}
 
-  // fp32 softmax by rows; P = bf16(e) in place, den = sum(e).
-  constexpr int CPL = (T + 31) / 32;  // columns per lane
-  for (int r = 0; r < 16; ++r) {
-    float s[CPL];
-    float m = -INFINITY;
-#pragma unroll
-    for (int k = 0; k < CPL; ++k) {
-      const int c = lane + 32 * k;
-      s[k] = c < T ? strip[r * P::SW + c] : -INFINITY;
-      m = fmaxf(m, s[k]);
-    }
-    m = warp_max(m);
-    float sum = 0.f;
-#pragma unroll
-    for (int k = 0; k < CPL; ++k) {
-      const int c = lane + 32 * k;
-      s[k] = c < T ? expf(s[k] - m) : 0.f;
-      sum += s[k];
-    }
-    sum = warp_sum(sum);
-    __syncwarp();  // row r is read by every lane before P row r overwrites it
-#pragma unroll
-    for (int k = 0; k < CPL; ++k) {
-      const int c = lane + 32 * k;
-      if (c < T) prob[r * T + c] = __float2bfloat16(s[k]);
-    }
-    if (lane == 0) sden[warp * 16 + r] = sum;
-  }
-  __syncwarp();
+// qb (C,) is added to q where it is not null.
+template <int NK, int D>
+__global__ void __launch_bounds__(Plan<NK, D>::THREADS, 1)
+window_attention_fwd_kernel(QKV in, const float* __restrict__ qb,
+                            const float* __restrict__ bm, const float* __restrict__ scale,
+                            bf16* __restrict__ out, long long pairs, int T, int heads, int nw) {
+  using P = Plan<NK, D>;
+  constexpr int LPR = D / 8;  // lanes per head row, 16 B each
+  constexpr int NC = NK / 64; // 64-key chunks of S
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const bf16* rq = reinterpret_cast<const bf16*>(smem + P::raw_off);
+  const bf16* rk = rq + NK * D;
+  const bf16* rv = rk + NK * D;
+  unsigned char* sq = smem + P::q_off;
+  unsigned char* sk = smem + P::k_off;
+  unsigned char* svt = smem + P::vt_off;
+  const uint32_t aq = smem_addr(sq), ak = smem_addr(sk), avt = smem_addr(svt);
 
-  // O = P V: 16 x D, fp32, then staged over the strip.
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> oacc[D / 16];
-#pragma unroll
-  for (int dt = 0; dt < D / 16; ++dt) wmma::fill_fragment(oacc[dt], 0.f);
-#pragma unroll
-  for (int j = 0; j < T / 16; ++j) {
-    wmma::load_matrix_sync(fa, prob + j * 16, T);
-#pragma unroll
-    for (int dt = 0; dt < D / 16; ++dt) {
-      wmma::load_matrix_sync(fv, sv + (koff + j * 16) * D + dt * 16, D);
-      wmma::mma_sync(oacc[dt], fa, fv, oacc[dt]);
-    }
-  }
-  __syncwarp();  // every lane is done reading P before O overwrites it
-#pragma unroll
-  for (int dt = 0; dt < D / 16; ++dt)
-    wmma::store_matrix_sync(strip + dt * 16, oacc[dt], P::SW, wmma::mem_row_major);
-  __syncwarp();
+  const int tid = threadIdx.x, wg = tid / 128, wt = tid % 128;
+  const int warp = wt / 32, lane = tid % 32;
+  const int C = heads * D;
 
-  for (int r = 0; r < 16; ++r) {
-    const float den = sden[warp * 16 + r];
-    bf16* orow = out + (n * T + t0 + r) * C + (long long)h * D;
+  long long pair = blockIdx.x;
+  if (pair < pairs) prefetch<NK, D>(in, smem + P::raw_off, pair, T, heads);
+  for (; pair < pairs; pair += gridDim.x) {
+    const long long n = pair / heads;
+    const int h = (int)(pair % heads);
+    const float sc = scale[h];
+    cp_async_wait_all();
+    __syncthreads();  // raw tiles landed; the previous pair is done with the staged ones
+
+    // Stage: Qs = bf16(scale normalise(bf16(q + bf16(qb)))), Kn = bf16(normalise(k)), V^T.
+    for (int i = tid; i < NK * LPR; i += P::THREADS) {
+      const int r = i / LPR, part = i % LPR;
+      float f[8];
+      unpack8(*reinterpret_cast<const uint4*>(rq + r * D + part * 8), f);
+      if (qb != nullptr) {
+        float qb8[8];
+        load8(qb + h * D + part * 8, qb8);
 #pragma unroll
-    for (int i = 0; i < V; ++i) {
-      const int d = lane + 32 * i;
-      orow[d] = __float2bfloat16(strip[r * P::SW + d] / den);
+        for (int e = 0; e < 8; ++e) f[e] = round_bf16(f[e] + round_bf16(qb8[e]));
+      }
+      float ssq = 0.f;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) ssq += f[e] * f[e];
+      float nrm = fmaxf(sqrtf(group_sum<LPR>(ssq)), EPS);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) f[e] = (f[e] / nrm) * sc;
+      *reinterpret_cast<uint4*>(sq + tile_off<D>(r, part * 8, NK)) = pack8(f);
+
+      unpack8(*reinterpret_cast<const uint4*>(rk + r * D + part * 8), f);
+      ssq = 0.f;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) ssq += f[e] * f[e];
+      nrm = fmaxf(sqrtf(group_sum<LPR>(ssq)), EPS);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) f[e] = f[e] / nrm;
+      *reinterpret_cast<uint4*>(sk + tile_off<D>(r, part * 8, NK)) = pack8(f);
+
+      const uint4 vraw = *reinterpret_cast<const uint4*>(rv + r * D + part * 8);
+      const bf16* vb = reinterpret_cast<const bf16*>(&vraw);
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        *reinterpret_cast<bf16*>(svt + tile_off<64>(part * 8 + e, r, D)) = vb[e];
+    }
+    fence_async_smem();
+    __syncthreads();
+    if (pair + gridDim.x < pairs)  // the next pair's rows load while this one computes
+      prefetch<NK, D>(in, smem + P::raw_off, pair + gridDim.x, T, heads);
+
+    const float* bmh = bm + ((long long)(n % nw) * heads + h) * T * T;
+    bf16* so = reinterpret_cast<bf16*>(smem + P::o_off) + wg * 64 * D;
+    for (int s = wg; s < NC; s += P::QW) {
+      const int q0 = 64 * s;
+      if (q0 >= T) break;
+      // S starts from bm (keys past T at -inf, rows past T at 0): the loads
+      // land in the accumulator registers themselves, all in flight at once.
+      const int r0 = q0 + 16 * warp + lane / 4;
+      float S[NK / 2];
+#pragma unroll
+      for (int i = 0; i < NK / 2; ++i) {
+        const int row = r0 + 8 * ((i % 4) / 2);
+        const int col = 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
+        S[i] = col >= T ? -INFINITY : row < T ? __ldg(bmh + (long long)row * T + col) : 0.f;
+      }
+      // S += Qs Kn^T.
+      wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          Mma<64>::ss(S + 32 * c, desc<D>(aq, q0, 16 * kk, NK), desc<D>(ak, 64 * c, 16 * kk, NK),
+                      1);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs<NK / 2>(S);
+
+      // Row max and sum over the quad.
+      float m[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int i = 0; i < NK / 2; ++i) m[(i % 4) / 2] = fmaxf(m[(i % 4) / 2], S[i]);
+      float den[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        m[j] = fmaxf(m[j], __shfl_xor_sync(0xffffffffu, m[j], 1));
+        m[j] = fmaxf(m[j], __shfl_xor_sync(0xffffffffu, m[j], 2));
+      }
+#pragma unroll
+      for (int i = 0; i < NK / 2; ++i) {
+        S[i] = __expf(S[i] - m[(i % 4) / 2]);
+        den[(i % 4) / 2] += S[i];
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        den[j] += __shfl_xor_sync(0xffffffffu, den[j], 1);
+        den[j] += __shfl_xor_sync(0xffffffffu, den[j], 2);
+      }
+
+      // O = bf16(e) V with P in registers, 64 keys a group: the bf16 P of
+      // two chunks, not of the whole strip, is live beside S, and chunk c+1
+      // is packed while chunk c's wgmmas run.
+      float O[D / 2];
+      uint32_t a[2][4][4];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) a_frag(S, 4 * c + kk, a[c % 2][kk]);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          Mma<D>::rs(O, a[c % 2][kk], desc<64>(avt, 0, 64 * c + 16 * kk, D), c > 0 || kk > 0);
+        wgmma_commit();
+        wgmma_wait<1>();
+      }
+      wgmma_wait_all();
+      fence_regs<D / 2>(O);
+
+      // O / sum through the staging tile, out in 16-byte rows.
+#pragma unroll
+      for (int i = 0; i < D / 2; i += 2) {
+        const int row = 16 * warp + lane / 4 + 8 * ((i % 4) / 2);
+        const int col = 8 * (i / 4) + 2 * (lane % 4);
+        const float inv = 1.f / den[(i % 4) / 2];
+        *reinterpret_cast<uint32_t*>(so + row * D + col) = pack2(O[i] * inv, O[i + 1] * inv);
+      }
+      bar_sync(1 + wg, 128);
+      for (int i = wt; i < 64 * LPR; i += 128) {
+        const int r = i / LPR, part = i % LPR;
+        if (q0 + r < T)
+          *reinterpret_cast<uint4*>(out + (n * T + q0 + r) * C + (long long)h * D + part * 8) =
+              *reinterpret_cast<const uint4*>(so + r * D + part * 8);
+      }
+      bar_sync(1 + wg, 128);
     }
   }
 }
 
-template <int T, int D>
+template <int NK, int D>
 cudaError_t launch(QKV in, const float* qb, const float* bm, const float* scale, bf16* out,
-                   int n_win, int heads, int nw, cudaStream_t stream) {
-  using P = Plan<T, D>;
-  auto kernel = window_attention_fwd_kernel<T, D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P::bytes);
+                   int n_win, int t, int heads, int nw, cudaStream_t stream) {
+  using P = Plan<NK, D>;
+  auto kernel = window_attention_fwd_kernel<NK, D>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)P::bytes);
   if (err != cudaSuccess) return err;
-  const long long rows = (long long)n_win * heads * T;
-  const unsigned grid = (unsigned)((rows + ROWS - 1) / ROWS);
-  kernel<<<grid, THREADS, P::bytes, stream>>>(in, qb, bm, scale, out, n_win, heads, nw);
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, P::THREADS,
+                                                           P::bytes)) != cudaSuccess)
+    return err;
+  const long long pairs = (long long)n_win * heads;
+  const long long slots = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  const unsigned grid = (unsigned)(pairs < slots ? pairs : slots);
+  kernel<<<grid, P::THREADS, P::bytes, stream>>>(in, qb, bm, scale, out, pairs, t, heads, nw);
   return cudaGetLastError();
+}
+
+template <int NK_, int D_>
+struct Shape {
+  static constexpr int NK = NK_, D = D_;
+};
+
+// Calls f(Shape<NK, D>{}) for the instantiation that takes window size t
+// and head width d.
+template <class F>
+cudaError_t dispatch(int t, int d, F f) {
+  if (t < 1 || t > 256) return cudaErrorInvalidValue;
+#define POSEIDON_CASE(DD)                                 \
+  if (d == DD) {                                          \
+    if (t <= 64) return f(Shape<64, DD>{});               \
+    if (t <= 128) return f(Shape<128, DD>{});             \
+    return f(Shape<256, DD>{});                           \
+  }
+  POSEIDON_CASE(16)
+  POSEIDON_CASE(32)
+  POSEIDON_CASE(64)
+#undef POSEIDON_CASE
+  return cudaErrorInvalidValue;
 }
 
 cudaError_t run(QKV in, const float* qb, const float* bm, const float* scale, bf16* out,
                 int n_win, int t, int heads, int d, int nw, cudaStream_t st) {
   if (n_win <= 0 || heads <= 0 || nw <= 0 || n_win % nw) return cudaErrorInvalidValue;
-#define POSEIDON_CASE(TT, DD) \
-  if (t == TT && d == DD) return launch<TT, DD>(in, qb, bm, scale, out, n_win, heads, nw, st);
-  POSEIDON_CASE(16, 32)
-  POSEIDON_CASE(64, 32)
-  POSEIDON_CASE(256, 32)
-  POSEIDON_CASE(16, 64)
-  POSEIDON_CASE(64, 64)
-  POSEIDON_CASE(256, 64)
-#undef POSEIDON_CASE
-  return cudaErrorInvalidValue;
+  return dispatch(t, d, [&](auto s) {
+    using S = decltype(s);
+    return launch<S::NK, S::D>(in, qb, bm, scale, out, n_win, t, heads, nw, st);
+  });
 }
 
 }  // namespace
@@ -360,6 +330,20 @@ extern "C" int fused_window_attention_fwd(const void* q, const void* k, const vo
                   nullptr, static_cast<const float*>(bm), static_cast<const float*>(scale),
                   static_cast<bf16*>(out), n_win, t, heads, d, nw,
                   static_cast<cudaStream_t>(stream));
+}
+
+// Registers, local-memory (spill) bytes and dynamic shared-memory bytes of
+// the instantiation that takes window size t and head width d.
+extern "C" int window_attention_fwd_info(int t, int d, int* out) {
+  return (int)dispatch(t, d, [&](auto s) {
+    using S = decltype(s);
+    cudaFuncAttributes a;
+    const cudaError_t err = cudaFuncGetAttributes(&a, window_attention_fwd_kernel<S::NK, S::D>);
+    out[0] = a.numRegs;
+    out[1] = (int)a.localSizeBytes;
+    out[2] = (int)Plan<S::NK, S::D>::bytes;
+    return err;
+  });
 }
 
 extern "C" const char* cuda_error_string(int err) {

@@ -38,10 +38,19 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the kernels")
 
 
+def _sources(path: Path, seen: set) -> bytes:
+    """The text of ``path`` and of every ``csrc`` header it includes, at
+    any depth, each once."""
+    seen.add(path.name)
+    text = path.read_bytes()
+    for h in re.findall(rb'^#include "([^"]+)"', text, flags=re.M):
+        if h.decode() not in seen:
+            text += _sources(CSRC / h.decode(), seen)
+    return text
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    headers = re.findall(rb'^#include "([^"]+)"', src, flags=re.M)
-    text = src + b"".join((CSRC / h.decode()).read_bytes() for h in headers)
+    text = _sources(CSRC / f"{name}.cu", set())
     digest = hashlib.sha1(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -86,9 +86,9 @@ def _check_operands(bf16s, fp32s, n, t, heads, d, bm):
                 "are ROADMAP queue 2 item 'fp32 operands in the kernels'")
         if a.dtype != torch.bfloat16:
             raise TypeError(f"window_attention kernel: {name} must be bf16, got {a.dtype}")
-    if t not in (16, 64, 256) or d not in (32, 64):
-        raise ValueError(f"window_attention kernel takes T in (16, 64, 256) and "
-                         f"D in (32, 64), got T={t}, D={d}")
+    if not 1 <= t <= 256 or d not in (16, 32, 64):
+        raise ValueError(f"window_attention kernel takes 1 <= T <= 256 and "
+                         f"D in (16, 32, 64), got T={t}, D={d}")
     nw = bm.shape[0]
     if bm.shape != (nw, heads, t, t) or n % nw:
         raise ValueError(f"bm must be (nW, H, T, T) with N % nW == 0, got "
@@ -102,9 +102,8 @@ def _check_operands(bf16s, fp32s, n, t, heads, d, bm):
             raise ValueError(f"{name} is on {a.device}, {first} on {dev}")
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if any(a.data_ptr() % 16 for _, a in bf16s) or bm.data_ptr() % 32:
-        raise ValueError(f"{', '.join(n for n, _ in bf16s)} must be 16-byte aligned "
-                         f"and bm 32-byte aligned")
+    if any(a.data_ptr() % 16 for _, a in bf16s):
+        raise ValueError(f"{', '.join(n for n, _ in bf16s)} must be 16-byte aligned")
     return nw
 
 
@@ -117,6 +116,8 @@ def _check(qkv, qb, bm, scale, heads):
         raise ValueError(f"C={c} is not a multiple of heads={heads}")
     if qb.shape != (c,) or scale.shape != (heads,):
         raise ValueError("qb must be (C,) and scale (H,)")
+    if qb.data_ptr() % 16:
+        raise ValueError("qb must be 16-byte aligned")
     d = c // heads
     nw = _check_operands([("qkv", qkv)], [("qb", qb), ("bm", bm), ("scale", scale)],
                          n, t, heads, d, bm)
@@ -200,13 +201,19 @@ def window_attention_bwd_plain(qkv: torch.Tensor, qb: torch.Tensor, bm: torch.Te
 
 
 def bwd_groups(n: int, nw: int, heads: int, t: int) -> int:
-    """Window groups G of the backward kernel: a CTA walks the windows of
-    one group that share a bias slot, and writes one fp32 partial of dbm,
-    dqb and dscale per group; enough groups to fill the card, and the dbm
-    partials (G x nW x H x T x T fp32) kept within 64 MiB."""
-    units = nw * heads * max(1, t // 64)
-    g = min(n // nw, max(1, -(-_BWD_TARGET_CTAS // units)))
-    return max(1, min(g, (64 << 20) // (nw * heads * t * t * 4)))
+    """Window groups G of the backward kernel: a cluster of T/64 CTAs (one
+    at T <= 64) walks the windows of one group that share a bias slot and a
+    head, and writes one fp32 partial of dbm per group; enough groups to
+    fill the card's SMs, and the dbm partials (G x nW x H x T x T fp32)
+    kept within 8 MiB."""
+    units = nw * heads * _bwd_cluster(t)
+    g = min(n // nw, max(1, -(-_SMS // units)))
+    return max(1, min(g, (8 << 20) // (nw * heads * t * t * 4)))
+
+
+def _bwd_cluster(t: int) -> int:
+    """CTAs per cluster of the backward kernel: one per 64 padded keys."""
+    return 1 if t <= 64 else 2 if t <= 128 else 4
 
 
 def window_attention_bwd(qkv: torch.Tensor, qb: torch.Tensor, bm: torch.Tensor,
@@ -239,16 +246,33 @@ def window_attention_bwd(qkv: torch.Tensor, qb: torch.Tensor, bm: torch.Tensor,
 
 def _bwd_scratch(n, t, heads, d, nw, device):
     """The backward kernel's window groups G and its fp32 outputs and
-    scratch: dqb (C,), dbm (nW, H, T, T), dscale (H,), the query pass's row
-    statistics (max, sum, rowsum(dp p)) and the per-group partials of dbm
-    and of dqb | dscale."""
+    scratch: dqb (C,), dbm (nW, H, T, T), dscale (H,), and the per-group
+    partials of dbm and (per cluster rank) of dqb | dscale."""
     g = bwd_groups(n, nw, heads, t)
     f32 = dict(dtype=torch.float32, device=device)
-    strips = max(1, t // 64)
     return g, (torch.empty(heads * d, **f32), torch.empty((nw, heads, t, t), **f32),
-               torch.empty(heads, **f32), torch.empty((n * heads * t, 3), **f32),
-               torch.empty((g, nw, heads, t, t), **f32),
-               torch.empty((g * strips, nw, heads, d + 1), **f32))
+               torch.empty(heads, **f32), torch.empty((g, nw, heads, t, t), **f32),
+               torch.empty((g * _bwd_cluster(t), nw, heads, d + 1), **f32))
+
+
+def kernel_info() -> dict:
+    """Registers, local-memory (spill) bytes and dynamic shared-memory
+    bytes of every instantiation of the two kernels, by padded window
+    NK = 64, 128, 256 and head width D (builds and loads them)."""
+    out = {}
+    for name, sigs, entry in (("window_attention", _SIGNATURES, "window_attention_fwd_info"),
+                              ("window_attention_bwd", _BWD_SIGNATURES,
+                               "window_attention_bwd_info")):
+        fn = getattr(_build.load(name, sigs), entry)
+        for nk in (64, 128, 256):
+            for d in (16, 32, 64):
+                vals = (ctypes.c_int * 3)()
+                err = fn(nk, d, ctypes.addressof(vals))
+                if err != 0:
+                    raise RuntimeError(f"{name} info failed: {err}")
+                out[f"{name} NK={nk} D={d}"] = {"registers": vals[0], "spill_bytes": vals[1],
+                                                "smem_bytes": vals[2]}
+    return out
 
 
 class WindowAttentionFn(torch.autograd.Function):
@@ -432,19 +456,23 @@ window_attention.launches = 0
 window_attention_bwd.launches = 0
 fused_window_attention.launches = 0
 fused_window_attention_bwd.launches = 0
-_BWD_TARGET_CTAS = 4 * 132
+_SMS = 132  # the H100's SMs: the backward's groups fill them
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # qkv, qb, bm, scale, out, n_windows, T, heads, D, nW, stream
     "window_attention_fwd": (_P,) * 5 + (_I,) * 5 + (_P,),
     # q, k, v, bm, scale, out, n_windows, T, heads, D, nW, stream
     "fused_window_attention_fwd": (_P,) * 6 + (_I,) * 5 + (_P,),
+    # T, D, int[3] out: registers, spill bytes, dynamic shared-memory bytes
+    "window_attention_fwd_info": (_I, _I, _P),
 }
 _BWD_SIGNATURES = {
-    # qkv, qb, bm, scale, do, dqkv, dqb, dbm, dscale, stats, part_bm, part_q,
+    # qkv, qb, bm, scale, do, dqkv, dqb, dbm, dscale, part_bm, part_q,
     # n_windows, T, heads, D, nW, groups, stream
-    "window_attention_bwd": (_P,) * 12 + (_I,) * 6 + (_P,),
-    # q, k, v, bm, scale, do, dq, dk, dv, dqb (scratch), dbm, dscale, stats,
+    "window_attention_bwd": (_P,) * 11 + (_I,) * 6 + (_P,),
+    # q, k, v, bm, scale, do, dq, dk, dv, dqb (scratch), dbm, dscale,
     # part_bm, part_q, n_windows, T, heads, D, nW, groups, stream
-    "fused_window_attention_bwd": (_P,) * 15 + (_I,) * 6 + (_P,),
+    "fused_window_attention_bwd": (_P,) * 14 + (_I,) * 6 + (_P,),
+    # T, D, int[3] out: registers, spill bytes, dynamic shared-memory bytes
+    "window_attention_bwd_info": (_I, _I, _P),
 }

@@ -152,8 +152,15 @@ def test_wrapper_checks():
         wa._check(qkv, qb, bm, scale, 2)
     q16 = qkv.to(torch.bfloat16)
     wa._check(q16, qb, bm, scale, 2)
-    with pytest.raises(ValueError, match="T in"):
-        wa._check(q16[:, :8].contiguous(), qb, bm[..., :8, :8].contiguous(), scale, 2)
+    # D = 16 and any T up to 256 go to the kernel; T > 256 and other D raise.
+    wa._check(q16[..., :96].contiguous(), qb[:32], bm, scale, 2)
+    qkv49, qb49, bias49, mask49, scale49 = [torch.from_numpy(a) for a in make(2, 2, 49, 32, 1)]
+    wa._check(qkv49.to(torch.bfloat16), qb49, bias49[None] + mask49[:, None], scale49, 2)
+    big = torch.zeros(2, 257, 3 * 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="T <= 256"):
+        wa._check(big, qb, torch.zeros(1, 2, 257, 257), scale, 2)
+    with pytest.raises(ValueError, match="D in"):
+        wa._check(q16[..., :48].contiguous(), qb[:16], bm, scale, 2)
     with pytest.raises(ValueError, match="bm"):
         wa._check(q16, qb, bm[:, :1], scale, 2)
     with pytest.raises(ValueError, match="contiguous"):

@@ -136,9 +136,14 @@ def test_wrapper_checks():
         wa._check_sep(q4, q4, q4, bm, scale)
     qb = q4.to(torch.bfloat16)
     wa._check_sep(qb, qb, qb, bm, scale)
-    with pytest.raises(ValueError, match="T in"):
-        wa._check_sep(qb[:, :8].contiguous(), qb[:, :8].contiguous(), qb[:, :8].contiguous(),
-                      bm[..., :8, :8].contiguous(), scale)
+    # Any T up to 256 and D = 16 go to the kernel; other D raise.
+    wa._check_sep(qb[:, :8].contiguous(), qb[:, :8].contiguous(), qb[:, :8].contiguous(),
+                  bm[..., :8, :8].contiguous(), scale)
+    q16 = qb[..., :16].contiguous()
+    wa._check_sep(q16, q16, q16, bm, scale)
+    with pytest.raises(ValueError, match="D in"):
+        q8 = qb[..., :8].contiguous()
+        wa._check_sep(q8, q8, q8, bm, scale)
     with pytest.raises(ValueError, match="one shape"):
         wa._check_sep(qb, qb[:1], qb, bm, scale)
     with pytest.raises(ValueError, match="contiguous"):

@@ -42,12 +42,14 @@ def _rel(a, b):
 
 
 ATTN_GEOMS = [(16, 24, 32, False), (64, 12, 32, False), (256, 3, 32, True),
-              (256, 3, 64, False), (16, 24, 64, False), (64, 12, 64, True)]
+              (256, 3, 64, False), (16, 24, 64, False), (64, 12, 64, True),
+              (256, 3, 16, True), (64, 12, 16, False), (16, 24, 16, True),
+              (49, 4, 32, False), (49, 4, 16, True), (144, 2, 64, True)]
 
 
 def _attention_inputs(t, h, d, shifted, seed):
     g = torch.Generator().manual_seed(seed)
-    window = int(t ** 0.5)
+    window = round(t ** 0.5)
     nw = 4 if shifted else 1
     n = 3 * nw  # three images
     c = h * d
