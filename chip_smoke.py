@@ -8,12 +8,14 @@ Phases, one JSON line each (any failure ends the run with a non-zero exit):
 1. environment: versions, the card (nvidia-smi name and power limit on a
    line of its own), the nvcc build of every kernel from csrc/ (ptxas
    lines, and the registers, spills and shared memory of every
-   instantiation of the two attention kernels), TF32 off;
+   instantiation of the attention and MLP kernels), TF32 off;
 2. kernels: each hand-written kernel against its plain PyTorch version on
    the card, bf16, at every shape the ScOT-B batch-32 serving path gives it
-   (and ScOT-L's; the attention also at ScOT-T's, D = 16, and at one 7x7
-   window, T = 49), with kernel / plain / library times (CUDA events, median
-   of 20 after warm-up) and the least time the card could take (bound);
+   (and ScOT-L's and ScOT-T's, C = 48 and D = 16; the attention also at one
+   7x7 window, T = 49), with kernel / plain / library times (CUDA events,
+   median of 20 after warm-up; also the profiler's device time, mean of 10
+   calls), the least time the card could take (bound) and, for the MLP, the
+   GELU's floor on the fp32 lanes (alu_floor_ms, from the shape);
 3. model: ScOT-B, 128x128, 4 channels, bf16, batch 32, seeded random
    weights, the attention's position bias, logit scales and q/v biases
    redrawn so that they differ by head and position, and the embedding and
@@ -27,8 +29,8 @@ Phases, one JSON line each (any failure ends the run with a non-zero exit):
 5. rollout: autoregressive_rollout with ar_steps=4 on the same model,
    launches counted the same way;
 6. backward kernels: each backward kernel against its plain version on the
-   card, bf16, at every ScOT-B and ScOT-L batch-32 shape (the attention's
-   also at ScOT-T's and T = 49), with the max abs
+   card, bf16, at every ScOT-B, ScOT-L and ScOT-T batch-32 shape (the
+   attention's also at T = 49), with the max abs
    error and relative L2 of every output, kernel / plain / library times
    (the library time is the autograd backward of the forward's library
    call), the bound, and two calls on the same inputs compared bit for bit;
@@ -43,7 +45,7 @@ Phases, one JSON line each (any failure ends the run with a non-zero exit):
    against the unprofiled step time, busy time by group, top kernels);
 9. fused-tail kernels: the block tail's forward and backward kernels (MLP +
    conditional LayerNorm + residual) against their plain versions at every
-   ScOT-B and ScOT-L batch-32 stage they serve, with a per-image scale and
+   ScOT-B, ScOT-L and ScOT-T batch-32 stage they serve, with a per-image scale and
    shift that differ by image and channel, times and bounds as in 2 and 6;
 10. separate-q/k/v attention: the op ``poseidon_tpu_torch.ops.
    fused_window_attention`` forward and backward through autograd at every
@@ -58,7 +60,8 @@ Phases, one JSON line each (any failure ends the run with a non-zero exit):
 12. the unfused and fused-tail forward and train step timed in turns;
 13. ScOT-T (head width 16 at every stage): phases 3 and 7 on its model
    ("model_T", "train_T"), launches one attention kernel per block and the
-   MLP kernel at stage 1 (C = 96);
+   MLP kernel at stages 0-1 (C = 48 and 96): 32/16 per forward, 32/32/16/16
+   per step;
 14. the kernels line; 15. the device line, last.
 
 Exits non-zero without printing results when CUDA is absent.
@@ -142,7 +145,7 @@ def host_ms(fn, iters: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def phase_environment(build, wa):
+def phase_environment(build, wa, mlp_op):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     card = smi.splitlines()[torch.cuda.current_device()] if smi else ""
@@ -154,13 +157,14 @@ def phase_environment(build, wa):
     wall = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in build.build_log(name).splitlines()
                     if "registers" in ln or "spill" in ln
-                    or ("window_attention" in name and "Compiling entry" in ln)]
+                    or "Compiling entry" in ln]
              for name in build.SOURCES}
     emit({"phase": "environment", "python": sys.version.split()[0], "torch": torch.__version__,
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
           "nvidia_smi": card, "csrc": str(build.CSRC), "build_dir": str(build.BUILD_DIR),
           "nvcc_seconds": seconds, "build_wall_s": wall,
           "ptxas": ptxas, "attention_kernels": wa.kernel_info(),
+          "mlp_kernels": mlp_op.kernel_info(),
           "tf32": "off for matmul and cudnn (comparisons in full fp32/bf16)"})
     return card
 
@@ -271,6 +275,25 @@ def mlp_bwd_bound(m, c, f, bound_ms):
     return bound_ms(10.0 * m * c * f, nbytes)
 
 
+# The MLP's second floor: the GELU (forward) or the GELU and its derivative
+# (backward, the tail backward too) once on every hidden value of every row,
+# as the function needs them, in fp32 lane operations counted from the
+# sources (mlp_tile.cuh; the bias, the erf's 12 operations and its two SFU
+# operations at four each, their quarter rate, the product and the bf16
+# packing; the derivative shares the erf and the exponential), over the
+# card's fp32 lanes: 132 SMs x 128 lanes x 1.98 GHz (H100 SXM boost clock).
+# A floor of the function, not of the kernels: the backward's dx and dW CTAs
+# each compute the GELU and its derivative, twice this work.
+GELU_OPS = {"fwd": 20, "bwd": 25}
+FP32_LANE_OPS = 132 * 128 * 1.98e9
+
+
+def alu_floor_ms(m, f, kind):
+    """Least time of the GELU work on the fp32 lanes (kind "fwd" or
+    "bwd"); computed from the shape, not measured."""
+    return m * f * GELU_OPS[kind] / FP32_LANE_OPS * 1e3
+
+
 def compare(names, out, ref):
     """Max abs error and relative L2 of each output, kernel vs plain."""
     rows = {}
@@ -351,7 +374,8 @@ def phase_kernels(pt, wa, mlp_op, attn_mod, bound_ms, card):
         if not ok:
             raise SystemExit(f"window_attention kernel disagrees at {row['shape']}")
         del qkv, out, ref
-    for model_name, cfg in (("B", cfg_b), ("L", cfg_l)):
+    cfg_t = pt.make_config("T", image_size=128, num_channels=4, num_out_channels=4)
+    for model_name, cfg in (("B", cfg_b), ("L", cfg_l), ("T", cfg_t)):
         for tag, m, c, f in mlp_shapes(cfg, BATCH, mlp_op):
             x, w1, b1, w2, b2 = mlp_case(m, c, f, gen)
             out = mlp_op.mlp(x, w1, b1, w2, b2)
@@ -371,7 +395,11 @@ def phase_kernels(pt, wa, mlp_op, attn_mod, bound_ms, card):
                    "kernel_ms": cuda_ms(lambda: mlp_op.mlp(x, w1, b1, w2, b2)),
                    "plain_ms": cuda_ms(lambda: mlp_op.mlp_plain(x, w1, b1, w2, b2)),
                    "library_ms": cuda_ms(lambda: F.linear(F.gelu(F.linear(x, w1, b1b)), w2, b2b)),
-                   "bound_ms": bms, "bound_by": by, "card": card}
+                   "kernel_device_ms": device_ms(lambda: mlp_op.mlp(x, w1, b1, w2, b2)),
+                   "library_device_ms": device_ms(
+                       lambda: F.linear(F.gelu(F.linear(x, w1, b1b)), w2, b2b)),
+                   "bound_ms": bms, "bound_by": by, "alu_floor_ms": alu_floor_ms(m, f, "fwd"),
+                   "card": card}
             emit(row)
             results["mlp"].append(row)
             if not ok:
@@ -413,7 +441,7 @@ def phase_bwd_kernels(pt, wa, mlp_op, attn_mod, bound_ms, card):
         if not ok:
             raise SystemExit(f"window_attention_bwd kernel disagrees at {row['shape']}")
         del qkv, do, out, again, ref
-    for model_name in ("B", "L"):
+    for model_name in ("B", "L", "T"):
         cfg = pt.make_config(model_name, image_size=128, num_channels=4, num_out_channels=4)
         for tag, m, c, f in mlp_shapes(cfg, BATCH, mlp_op):
             x, w1, b1, w2, b2 = mlp_case(m, c, f, gen)
@@ -431,7 +459,7 @@ def phase_bwd_kernels(pt, wa, mlp_op, attn_mod, bound_ms, card):
             bms, by = mlp_bwd_bound(m, c, f, bound_ms)
             row = {"phase": "bwd_kernel", "kernel": "fused_mlp_bwd", "model": model_name,
                    "shape": f"{tag}: M={m} C={c} F={f}",
-                   "splits": mlp_op.bwd_splits(m, f, 2 * f * c + f + c), "errors": errs,
+                   "splits": mlp_op.bwd_splits(m, c, f), "errors": errs,
                    "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
                    "tol": f"dx allclose atol=rtol={MLP_TOL}; dw1, db1, dw2, db2 rel L2 <= "
                           f"{SUM_REL_TOL}; second call bit-identical", "ok": ok,
@@ -439,7 +467,11 @@ def phase_bwd_kernels(pt, wa, mlp_op, attn_mod, bound_ms, card):
                    "plain_ms": cuda_ms(lambda: mlp_op.mlp_bwd_plain(*args)),
                    "library_ms": cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, dy,
                                                                      retain_graph=True)),
-                   "bound_ms": bms, "bound_by": by, "card": card}
+                   "kernel_device_ms": device_ms(lambda: mlp_op.mlp_bwd(*args)),
+                   "library_device_ms": device_ms(lambda: torch.autograd.grad(
+                       lib_out, leaves, dy, retain_graph=True)),
+                   "bound_ms": bms, "bound_by": by, "alu_floor_ms": alu_floor_ms(m, f, "bwd"),
+                   "card": card}
             emit(row)
             results["mlp"].append(row)
             if not ok:
@@ -502,7 +534,7 @@ def phase_cln_kernels(pt, mlp_op, bound_ms, card):
     gen = torch.Generator().manual_seed(7)
     eps = 1e-5
     results = {"fwd": [], "bwd": []}
-    for model_name in ("B", "L"):
+    for model_name in ("B", "L", "T"):
         cfg = pt.make_config(model_name, image_size=128, num_channels=4, num_out_channels=4)
         for tag, b, l, c, f in cln_shapes(cfg, BATCH, mlp_op):
             x, w1, b1, w2, b2, scale, shift = cln_case(b, l, c, f, gen)
@@ -523,7 +555,10 @@ def phase_cln_kernels(pt, mlp_op, bound_ms, card):
                    "kernel_ms": cuda_ms(lambda: mlp_op.mlp_cln(*fargs)),
                    "plain_ms": cuda_ms(lambda: mlp_op.mlp_cln_plain(*fargs)),
                    "library_ms": cuda_ms(lambda: cln_library_call(*lib_in, eps)),
-                   "bound_ms": bms, "bound_by": by, "card": card}
+                   "kernel_device_ms": device_ms(lambda: mlp_op.mlp_cln(*fargs)),
+                   "library_device_ms": device_ms(lambda: cln_library_call(*lib_in, eps)),
+                   "bound_ms": bms, "bound_by": by, "alu_floor_ms": alu_floor_ms(b * l, f, "fwd"),
+                   "card": card}
             emit(row)
             results["fwd"].append(row)
             if not ok:
@@ -539,7 +574,7 @@ def phase_cln_kernels(pt, mlp_op, bound_ms, card):
             lib_out = cln_library_call(*leaves, eps)
             bms, by = cln_bound(b, l, c, f, bound_ms, backward=True)
             row = {"phase": "cln_kernel", "kernel": "mlp_cln_bwd", "model": model_name,
-                   "shape": shape, "splits": mlp_op.bwd_splits(b * l, f, 2 * f * c + f + c),
+                   "shape": shape, "splits": mlp_op.bwd_splits(b * l, c, f),
                    "errors": errs, "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
                    "tol": f"dx allclose atol=rtol={MLP_TOL}; the weight, bias, scale and "
                           f"shift gradients rel L2 <= {SUM_REL_TOL}; second call "
@@ -548,7 +583,11 @@ def phase_cln_kernels(pt, mlp_op, bound_ms, card):
                    "plain_ms": cuda_ms(lambda: mlp_op.mlp_cln_bwd_plain(*bargs)),
                    "library_ms": cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, dy,
                                                                      retain_graph=True)),
-                   "bound_ms": bms, "bound_by": by, "card": card}
+                   "kernel_device_ms": device_ms(lambda: mlp_op.mlp_cln_bwd(*bargs)),
+                   "library_device_ms": device_ms(lambda: torch.autograd.grad(
+                       lib_out, leaves, dy, retain_graph=True)),
+                   "bound_ms": bms, "bound_by": by,
+                   "alu_floor_ms": alu_floor_ms(b * l, f, "bwd"), "card": card}
             emit(row)
             results["bwd"].append(row)
             if not ok:
@@ -1101,7 +1140,7 @@ def main() -> int:
     from poseidon_tpu_torch.ops import _build, mlp as mlp_op, window_attention as wa_mod
     from poseidon_tpu_torch.utils.device import bound_ms
 
-    card = phase_environment(_build, wa_mod)
+    card = phase_environment(_build, wa_mod, mlp_op)
     results = phase_kernels(pt, wa_mod, mlp_op, attn_mod, bound_ms, card)
     model, x, t, per_forward, forward_ms = phase_model(pt, wa_mod, mlp_op, attn_mod, card)
     phase_profile(model, x, t, forward_ms, card)

@@ -16,6 +16,10 @@ extern "C" int mlp_bwd(const void* x, const void* w1, const void* b1, const void
       static_cast<cudaStream_t>(stream));
 }
 
+// Registers, local-memory (spill) bytes and dynamic shared-memory bytes of
+// the instantiation of width c.
+extern "C" int mlp_bwd_info(int c, int* out) { return (int)mlp_bwd_tile::info(c, out); }
+
 extern "C" const char* cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -16,18 +16,19 @@
 //
 // Bound on this card: as the MLP's (mlp_tile.cuh), 4*C*F FLOPs and 4C bytes
 // a row, bound by tensor-core operations. The norm and the residual add cost
-// no extra bytes: they read the output sum and the x tile where the MLP left
-// them in shared memory, which is what the unfused path, with the MLP output,
-// the norm's output and the residual each written to device memory and read
-// back, pays for.
+// no extra device-memory bytes: they read the output sum in registers and
+// the x tile in shared memory, where the unfused path writes the MLP output,
+// the norm's output and the residual to device memory and reads them back.
 //
-// Design. The MLP main loop of mlp_tile.cuh leaves the 64 x C fp32 sum and the
-// x tile in shared memory. The channel mean and variance of a row need all C
-// outputs, which the WMMA accumulators spread over two warps in an opaque
-// layout, so the epilogue reads the staged sum by rows: each warp takes every
-// eighth row, each lane C/32 of its columns, and reduces over the row with
-// shuffles. A 64-row tile lies in one image (the wrapper checks L % 64 == 0),
-// so the tile reads one row of scale and shift.
+// Design. The MLP main loop of mlp_tile.cuh leaves the 64 x C fp32 sum in
+// wgmma's accumulator registers, where a row's C values lie in one quad of
+// lanes (at C = 384, in one quad of each of the two warpgroups). So the
+// epilogue takes the row statistics in registers: quad shuffles, and at
+// C = 384 one exchange of the two warpgroups' row sums through shared
+// memory, added in a fixed order. x is read from the tile the main loop
+// staged, and the output written over it and stored in 16-byte rows. A
+// 64-row tile lies in one image (the wrapper checks
+// L % 64 == 0), so the tile reads one row of scale and shift.
 
 #include "mlp_tile.cuh"
 
@@ -35,59 +36,42 @@ using namespace mlp_fwd_tile;
 
 namespace {
 
-template <int C>
-__global__ void __launch_bounds__(THREADS)
+template <int C, bool RES>
+__global__ void __launch_bounds__(RES ? Resident<C>::THREADS : Plan<C>::THREADS, 1)
 mlp_cln_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
                    const float* __restrict__ b1, const bf16* __restrict__ w2,
                    const float* __restrict__ b2, const float* __restrict__ scale,
                    const float* __restrict__ shift, bf16* __restrict__ out,
                    int M, int F, int L, float eps) {
-  constexpr int V = C / 32;  // columns per lane
-  extern __shared__ __align__(128) unsigned char smem[];
-  const long long m0 = (long long)blockIdx.x * MT;
-  tile_sum<C>(x, w1, b1, w2, smem, m0, M, F);
-  const float* so = reinterpret_cast<const float*>(smem + Plan<C>::o_off);
-  const bf16* sx = reinterpret_cast<const bf16*>(smem + Plan<C>::x_off);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long long img = m0 / L;
-  const float* sc = scale + img * C;
-  const float* sh = shift + img * C;
-  for (int r = warp; r < MT; r += WARPS) {
-    if (m0 + r >= M) break;
-    float o[V];
-    float s1 = 0.f, s2 = 0.f;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int n0 = RES ? 0 : (threadIdx.x / 128) * Plan<C>::NW;
+  run_rows<C, RES>(x, w1, b1, w2, smem, M, F,
+                   [&](auto& acc, long long m0, unsigned char* xt, float* red, auto sync,
+                       int rt, int rn) {
+    constexpr int N = sizeof(acc) / sizeof(float);
+    float mu[2], rs[2];
+    row_stats<C>(acc, b2, eps, red, n0, mu, rs);
+    const long long img = m0 / L;
+    const float* sc = scale + img * C;
+    const float* sh = shift + img * C;
+    sync();  // the tile's products are done with its x
+    // out = x + y in place of x in the staged tile (each value read and
+    // written by one thread), then out in 16-byte rows.
 #pragma unroll
-    for (int i = 0; i < V; ++i) {
-      const int c = lane + 32 * i;
-      o[i] = round_bf16(so[r * C + c] + b2[c]);
-      s1 += o[i];
-      s2 += o[i] * o[i];
+    for (int i = 0; i < N; i += 2) {
+      const int j = (i % 4) / 2, col = n0 + acc_col(lane, i);
+      uint32_t* at =
+          reinterpret_cast<uint32_t*>(xt + tile_off<Atom<C>::AK>(acc_row(warp, lane, i), col, 64));
+      const float2 xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(at));
+      const float y0 = round_bf16(__ldg(sc + col) * ((acc[i] - mu[j]) * rs[j]) + __ldg(sh + col));
+      const float y1 =
+          round_bf16(__ldg(sc + col + 1) * ((acc[i + 1] - mu[j]) * rs[j]) + __ldg(sh + col + 1));
+      *at = pack2(xv.x + y0, xv.y + y1);
     }
-    const float mu = warp_sum(s1) / C;
-    const float var = fmaxf(warp_sum(s2) / C - mu * mu, 0.f);
-    const float rs = rsqrtf(var + eps);
-    bf16* orow = out + (m0 + r) * C;
-#pragma unroll
-    for (int i = 0; i < V; ++i) {
-      const int c = lane + 32 * i;
-      const float y = round_bf16(sc[c] * ((o[i] - mu) * rs) + sh[c]);
-      orow[c] = __float2bfloat16(__bfloat162float(sx[r * C + c]) + y);
-    }
-  }
-}
-
-template <int C>
-cudaError_t launch(const bf16* x, const bf16* w1, const float* b1, const bf16* w2,
-                   const float* b2, const float* scale, const float* shift, bf16* out,
-                   int M, int F, int L, float eps, cudaStream_t stream) {
-  using P = Plan<C>;
-  auto kernel = mlp_cln_fwd_kernel<C>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P::bytes);
-  if (err != cudaSuccess) return err;
-  kernel<<<(unsigned)(M / MT), THREADS, P::bytes, stream>>>(x, w1, b1, w2, b2, scale, shift,
-                                                            out, M, F, L, eps);
-  return cudaGetLastError();
+    sync();
+    store_tile<C>(xt, out, m0, M, rt, rn);
+  });
 }
 
 }  // namespace
@@ -95,22 +79,26 @@ cudaError_t launch(const bf16* x, const bf16* w1, const float* b1, const bf16* w
 extern "C" int mlp_cln_fwd(const void* x, const void* w1, const void* b1, const void* w2,
                            const void* b2, const void* scale, const void* shift, void* out,
                            int M, int C, int F, int L, float eps, void* stream) {
-  if (M <= 0 || F <= 0 || F % FT || L <= 0 || L % MT || M % L) return (int)cudaErrorInvalidValue;
-  const bf16* xp = static_cast<const bf16*>(x);
-  const bf16* w1p = static_cast<const bf16*>(w1);
-  const float* b1p = static_cast<const float*>(b1);
-  const bf16* w2p = static_cast<const bf16*>(w2);
-  const float* b2p = static_cast<const float*>(b2);
-  const float* sp = static_cast<const float*>(scale);
-  const float* hp = static_cast<const float*>(shift);
-  bf16* op = static_cast<bf16*>(out);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (C) {
-    case 96: return (int)launch<96>(xp, w1p, b1p, w2p, b2p, sp, hp, op, M, F, L, eps, st);
-    case 192: return (int)launch<192>(xp, w1p, b1p, w2p, b2p, sp, hp, op, M, F, L, eps, st);
-    case 384: return (int)launch<384>(xp, w1p, b1p, w2p, b2p, sp, hp, op, M, F, L, eps, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (M <= 0 || F <= 0 || F % 64 || L <= 0 || L % 64 || M % L) return (int)cudaErrorInvalidValue;
+  return (int)dispatch(C, [&](auto w) {
+    constexpr int CC = decltype(w)::C;
+    return launch_rows<CC>(mlp_cln_fwd_kernel<CC, Resident<CC>::ok>,
+                           mlp_cln_fwd_kernel<CC, false>, M, F, static_cast<cudaStream_t>(stream),
+                           static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
+                           static_cast<const float*>(b1), static_cast<const bf16*>(w2),
+                           static_cast<const float*>(b2), static_cast<const float*>(scale),
+                           static_cast<const float*>(shift), static_cast<bf16*>(out), M, F, L,
+                           eps);
+  });
+}
+
+// Registers, local-memory (spill) bytes and dynamic shared-memory bytes of
+// the kernel that width c launches at F = 4c.
+extern "C" int mlp_cln_fwd_info(int c, int* out) {
+  return (int)dispatch(c, [&](auto w) {
+    constexpr int CC = decltype(w)::C;
+    return rows_info<CC>(mlp_cln_fwd_kernel<CC, Resident<CC>::ok>, out);
+  });
 }
 
 extern "C" const char* cuda_error_string(int err) {

@@ -51,11 +51,13 @@
 // occupancy (S of a 64 x 256 strip: at most 246 a thread, no spills);
 // shared memory holds one pair's raw and staged tiles (at most 208 KB).
 
-#include "attn_wgmma.cuh"
+#include "wgmma.cuh"
 
-using namespace attn;
+using namespace wgm;
 
 namespace {
+
+constexpr float EPS = 1e-12f;  // torch F.normalize clamp
 
 // q, k and v of token (n, t) and head h at q/k/v + (n T + t) ld + h D.
 struct QKV {

@@ -59,11 +59,13 @@
 // read from L2 per strip pair, two more barriers per window), not by bytes
 // or tensor-core operations.
 
-#include "attn_wgmma.cuh"
+#include "wgmma.cuh"
 
-using namespace attn;
+using namespace wgm;
 
 namespace {
+
+constexpr float EPS = 1e-12f;  // torch F.normalize clamp
 
 // q, k, v (which = 0, 1, 2) of token (n, t) and head h at in[which] +
 // (n T + t) ld + h D, and their gradients at the same offsets from din.

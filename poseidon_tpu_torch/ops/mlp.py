@@ -8,7 +8,9 @@ with fp32 accumulation, exact (erf) GELU on the fp32 pre-activation, and
 ``cast`` rounding to x's dtype: the function of the TPU kernels
 ``poseidon_tpu/ops/mlp.py::_fwd_kernel_dm`` and ``::_fwd_kernel``, with their
 rounding points. Weights are in PyTorch Linear layout: ``w1`` (F, C), ``w2``
-(C, F), biases fp32.
+(C, F), biases fp32. The kernels take C in ``KERNEL_WIDTHS`` and evaluate erf
+as the TPU kernels do (Abramowitz-Stegun 7.1.26, within 1.5e-7); the plain
+versions use ``torch.erf``.
 
 The backward (:func:`mlp_bwd`) recomputes the hidden state, as the TPU
 kernels ``_bwd_kernel_dm``, ``_bwd_kernel_fused`` and ``_bwd_kernel_emit``
@@ -34,7 +36,7 @@ import torch
 from ..models.layers import _layer_stats, dense, gelu_exact
 from . import _build
 
-KERNEL_WIDTHS = (96, 192, 384)
+KERNEL_WIDTHS = (48, 96, 192, 384)
 _INV_SQRT2PI = 0.3989422804014327
 
 
@@ -129,12 +131,19 @@ def _mlp_bwd_f32(x, w1, b1, w2, dy):
     return dub @ w1f, dub.t() @ xf, du.sum(dim=0), dyf.t() @ g, dyf.sum(dim=0)
 
 
-def bwd_splits(m: int, f: int, out_floats: int) -> int:
-    """Row splits R of the backward kernel's weight-gradient blocks: each
-    writes one fp32 partial of (dw1, dw2, db1, db2); enough splits to fill
-    the card, the partials kept within 64 MiB."""
-    r = -(-_BWD_TARGET_CTAS // max(1, f // 64))
-    return max(1, min(-(-m // 64), r, (64 << 20) // (4 * out_floats)))
+def bwd_splits(m: int, c: int, f: int) -> int:
+    """Row splits R of the backward kernel's weight-gradient CTAs. Each CTA
+    takes one 64-wide step of F and one chunk of the columns (C, or two of
+    192 at C = 384) and walks its split's row groups (128 rows; 64 at
+    C = 384); each split writes one fp32 partial of (dw1, dw2, db1, db2).
+    About one such CTA an SM (four at C = 384, whose CTAs are short), the
+    partials kept within 64 MiB: the counts that measured fastest on the
+    H100 at the ScOT-T, -B and -L shapes (PERF.md)."""
+    rows, chunks = (64, 2) if c == 384 else (128, 1)
+    out_floats = 2 * f * c + f + c
+    target = _BWD_TARGET_CTAS * (4 if c == 384 else 1)
+    r = -(-target // max(1, (f // 64) * chunks))
+    return max(1, min(-(-m // rows), r, (64 << 20) // (4 * out_floats)))
 
 
 def mlp_bwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
@@ -150,7 +159,7 @@ def mlp_bwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tenso
     m, c, f = _check(x2, w1, b1, w2)
     _check_dy(dy2, x2)
     n_out = 2 * f * c + f + c
-    r = bwd_splits(m, f, n_out)
+    r = bwd_splits(m, c, f)
     dx = torch.empty_like(x2)
     grads = torch.empty(n_out, dtype=torch.float32, device=x.device)
     part = torch.empty((r, n_out), dtype=torch.float32, device=x.device)
@@ -191,19 +200,41 @@ def mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
 
 mlp.launches = 0
 mlp_bwd.launches = 0
-_BWD_TARGET_CTAS = 4 * 132
+_BWD_TARGET_CTAS = 132
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # x, w1, b1, w2, b2, out, M, C, F, stream
-_SIGNATURES = {"mlp_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P)}
+_SIGNATURES = {"mlp_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P), "mlp_fwd_info": (_I, _P)}
 # x, w1, b1, w2, dy, dx, grads, partials, M, C, F, R, stream
-_BWD_SIGNATURES = {"mlp_bwd": (_P,) * 8 + (_I,) * 4 + (_P,)}
+_BWD_SIGNATURES = {"mlp_bwd": (_P,) * 8 + (_I,) * 4 + (_P,), "mlp_bwd_info": (_I, _P)}
+
+
+def kernel_info() -> dict:
+    """Registers, local-memory (spill) bytes and dynamic shared-memory bytes
+    of every instantiation of the four MLP kernels (the tail backward's
+    prologue; its middle launch is the MLP backward's kernel), by width C
+    (builds and loads them)."""
+    out = {}
+    for name, sigs, entry in (("mlp", _SIGNATURES, "mlp_fwd_info"),
+                              ("mlp_bwd", _BWD_SIGNATURES, "mlp_bwd_info"),
+                              ("mlp_cln", _CLN_SIGNATURES, "mlp_cln_fwd_info"),
+                              ("mlp_cln_bwd", _CLN_BWD_SIGNATURES, "mlp_cln_bwd_info")):
+        fn = getattr(_build.load(name, sigs), entry)
+        for c in KERNEL_WIDTHS:
+            vals = (ctypes.c_int * 3)()
+            err = fn(c, ctypes.addressof(vals))
+            if err != 0:
+                raise RuntimeError(f"{name} info failed: {err}")
+            out[f"{name} C={c}"] = {"registers": vals[0], "spill_bytes": vals[1],
+                                    "smem_bytes": vals[2]}
+    return out
 
 
 def use_mlp_kernel(c: int, tokens_per_image: int) -> bool:
     """The port's dispatch rule: the fused kernel for stages with at least
-    256 tokens per image and a width the kernel takes. At ScOT-B and ScOT-L
-    on 128x128 inputs these are stages 0-1, where the JAX package also runs
-    its Pallas kernel; the narrow-token, wide stages 2-3 run as two GEMMs."""
+    256 tokens per image and a width the kernel takes. At ScOT-T/S, ScOT-B
+    and ScOT-L on 128x128 inputs these are stages 0-1, where the JAX package
+    also runs its Pallas kernel; the narrow-token, wide stages 2-3 run as two
+    GEMMs."""
     return tokens_per_image >= 256 and c in KERNEL_WIDTHS
 
 
@@ -317,7 +348,7 @@ def mlp_cln_bwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.T
     _check_dy(dy2, x2)
     b = x.shape[0]
     n_out = 2 * f * c + f + c
-    r = bwd_splits(m, f, n_out)
+    r = bwd_splits(m, c, f)
     f32 = dict(dtype=torch.float32, device=x.device)
     dob = torch.empty_like(x2)            # bf16(do), the MLP backward's cotangent
     dx = torch.empty_like(x2)
@@ -370,9 +401,10 @@ def mlp_cln(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tenso
 
 def use_fused_tail(c: int, tokens_per_image: int) -> bool:
     """The port's gate of the fused block tail: the MLP kernel's rule
-    (:func:`use_mlp_kernel`) and whole 64-row tiles per image. At ScOT-B on
-    128x128 inputs this picks stages 0-1, the blocks where the JAX package's
-    TPU VMEM budget (``dm_eligible(..., cln=True)``) also takes its kernel.
+    (:func:`use_mlp_kernel`) and whole 64-row tiles per image. At ScOT-T/S
+    and ScOT-B on 128x128 inputs this picks stages 0-1, the blocks where the
+    JAX package's TPU VMEM budget (``dm_eligible(..., cln=True)``) also takes
+    its kernel.
     At ScOT-L that budget refuses every stage and this rule takes stages
     0-1. Both paths compute the same function, so only the speed differs."""
     return use_mlp_kernel(c, tokens_per_image) and tokens_per_image % 64 == 0
@@ -382,6 +414,7 @@ mlp_cln.launches = 0
 mlp_cln_bwd.launches = 0
 _F = ctypes.c_float
 # x, w1, b1, w2, b2, scale, shift, out, M, C, F, L, eps, stream
-_CLN_SIGNATURES = {"mlp_cln_fwd": (_P,) * 8 + (_I,) * 4 + (_F, _P)}
+_CLN_SIGNATURES = {"mlp_cln_fwd": (_P,) * 8 + (_I,) * 4 + (_F, _P), "mlp_cln_fwd_info": (_I, _P)}
 # x, w1, b1, w2, b2, scale, dy, dob, dx, grads, part, cpart, cout, M, C, F, L, R, eps, stream
-_CLN_BWD_SIGNATURES = {"mlp_cln_bwd": (_P,) * 13 + (_I,) * 5 + (_F, _P)}
+_CLN_BWD_SIGNATURES = {"mlp_cln_bwd": (_P,) * 13 + (_I,) * 5 + (_F, _P),
+                       "mlp_cln_bwd_info": (_I, _P)}

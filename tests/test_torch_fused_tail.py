@@ -14,7 +14,7 @@ the output.
   atol 2e-5.
 - The fused branch is taken in exactly the 2 * depths[0] stage-0 blocks of
   encoder and decoder, the unfused MLP wrapper in none; the port's gate
-  agrees with the JAX package's at every stage of ScOT-B 128x128 and, by
+  agrees with the JAX package's at every stage of ScOT-T and ScOT-B 128x128 and, by
   design, not at ScOT-L; the fused-tail JAX tree loads strictly; under
   drop-path 0.2 in train mode the fused and unfused port branches drop the
   same samples for the same generator."""
@@ -92,17 +92,18 @@ def test_forward_matches_jax_and_takes_the_tail_in_stage0_blocks(monkeypatch):
 
 
 def test_gate_matches_jax_at_scot_b_and_differs_at_scot_l():
-    """ScOT-B 128x128: both take stages 0-1. ScOT-L: the JAX package's TPU
-    VMEM budget refuses every stage, the port's gate takes stages 0-1; both
-    compute the same function there."""
+    """ScOT-T and ScOT-B 128x128: both take stages 0-1. ScOT-L: the JAX
+    package's TPU VMEM budget refuses every stage, the port's gate takes
+    stages 0-1; both compute the same function there."""
     picked = {}
-    for size in ("B", "L"):
+    for size in ("T", "B", "L"):
         cfg = pt.make_config(size, image_size=128, num_channels=4, num_out_channels=4)
         picked[size] = []
         for i in range(cfg.num_stages):
             c, l = cfg.stage_dim(i), cfg.stage_resolution(i) ** 2
             jax_takes = jmlp.dm_eligible((32, l, c), c, int(cfg.mlp_ratio * c), 2, cln=True)
             picked[size].append((mlp_op.use_fused_tail(c, l), jax_takes))
+    assert picked["T"] == [(True, True), (True, True), (False, False), (False, False)]
     assert picked["B"] == [(True, True), (True, True), (False, False), (False, False)]
     assert picked["L"] == [(True, False), (True, False), (False, False), (False, False)]
 

@@ -108,12 +108,12 @@ def test_window_attention_function_matches_autograd_of_plain(t, h, d, shifted):
         assert _rel(a, b) <= AUTOGRAD_TOL
 
 
-MLP_SHAPES = [(1000, 96), (512, 192), (300, 384), (64, 96)]
+MLP_SHAPES = [(1000, 96), (512, 192), (300, 384), (64, 96), (1000, 48), (256, 48)]
 
 
-def _mlp_inputs(m, c, seed):
+def _mlp_inputs(m, c, seed, f=None):
     g = torch.Generator().manual_seed(seed)
-    f = 4 * c
+    f = f or 4 * c
     x = torch.randn(m, c, generator=g).to("cuda", torch.bfloat16)
     w1 = (torch.randn(f, c, generator=g) / c ** 0.5).to("cuda", torch.bfloat16)
     w2 = (torch.randn(c, f, generator=g) / f ** 0.5).to("cuda", torch.bfloat16)
@@ -123,11 +123,14 @@ def _mlp_inputs(m, c, seed):
     return x, w1, b1, w2, b2, dy
 
 
+# F = 4C keeps the weights of C <= 96 resident in shared memory; a wider F
+# takes the streamed plan at those widths too.
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,c", MLP_SHAPES)
-def test_mlp_kernel_matches_plain(m, c):
+@pytest.mark.parametrize("m,c,f", [(m, c, None) for m, c in MLP_SHAPES]
+                         + [(500, 96, 512), (256, 48, 1024)])
+def test_mlp_kernel_matches_plain(m, c, f):
     _needs_card()
-    x, w1, b1, w2, b2, _ = _mlp_inputs(m, c, 1)
+    x, w1, b1, w2, b2, _ = _mlp_inputs(m, c, 1, f)
     before = mlp_op.mlp.launches
     out = mlp_op.mlp(x, w1, b1, w2, b2)
     assert mlp_op.mlp.launches == before + 1
@@ -176,14 +179,16 @@ def test_fp32_on_card_raises():
 
 
 # (B, L, C): ScOT-B stage 0 and 1 blocks (C = 96 at L = 1024, 192 at 256),
-# ScOT-L's stage 1 width, and one-tile images.
-CLN_SHAPES = [(2, 1024, 96), (3, 256, 192), (2, 256, 384), (4, 64, 96)]
+# ScOT-L's stage 1 width, one-tile images, a ScOT-T stage 0 block, and (B,
+# L, C, F) a hidden width that streams the weights at C = 96.
+CLN_SHAPES = [(2, 1024, 96), (3, 256, 192), (2, 256, 384), (4, 64, 96), (2, 1024, 48),
+              (2, 256, 96, 512)]
 
 
-def _cln_inputs(b, l, c, seed):
+def _cln_inputs(b, l, c, seed, f=None):
     """Scale and shift differ by image and channel, so that a tile that read
     another image's row would disagree."""
-    x, w1, b1, w2, b2, dy = _mlp_inputs(b * l, c, seed)
+    x, w1, b1, w2, b2, dy = _mlp_inputs(b * l, c, seed, f)
     g = torch.Generator().manual_seed(seed + 50)
     scale = (1.0 + 0.5 * torch.randn(b, c, generator=g)).cuda()
     shift = (0.5 * torch.randn(b, c, generator=g)).cuda()
@@ -191,10 +196,11 @@ def _cln_inputs(b, l, c, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,l,c", CLN_SHAPES)
-def test_mlp_cln_kernel_matches_plain(b, l, c):
+@pytest.mark.parametrize("shape", CLN_SHAPES)
+def test_mlp_cln_kernel_matches_plain(shape):
     _needs_card()
-    x, w1, b1, w2, b2, scale, shift, _ = _cln_inputs(b, l, c, 4)
+    b, l, c, *f = shape
+    x, w1, b1, w2, b2, scale, shift, _ = _cln_inputs(b, l, c, 4, *f)
     before = mlp_op.mlp_cln.launches
     out = mlp_op.mlp_cln(x, w1, b1, w2, b2, scale, shift)
     assert mlp_op.mlp_cln.launches == before + 1
@@ -202,10 +208,11 @@ def test_mlp_cln_kernel_matches_plain(b, l, c):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,l,c", CLN_SHAPES)
-def test_mlp_cln_bwd_kernel_matches_plain(b, l, c):
+@pytest.mark.parametrize("shape", CLN_SHAPES)
+def test_mlp_cln_bwd_kernel_matches_plain(shape):
     _needs_card()
-    x, w1, b1, w2, b2, scale, _, dy = _cln_inputs(b, l, c, 5)
+    b, l, c, *f = shape
+    x, w1, b1, w2, b2, scale, _, dy = _cln_inputs(b, l, c, 5, *f)
     args = (x, w1, b1, w2, b2, scale, 1e-5, dy)
     before = mlp_op.mlp_cln_bwd.launches
     out = mlp_op.mlp_cln_bwd(*args)

@@ -3,8 +3,8 @@
 plain versions), against the JAX package's ``fused_mlp_cln`` and its
 ``jax.vjp`` (Pallas in interpret mode: ``_fwd_kernel_dm_cln`` and
 ``_bwd_kernel_dm_cln``, spied on), at (B, L, C, F) = (3, 128, 32, 128), the
-geometry of tests/test_mlp_op.py, and (2, 256, 96, 384), a ScOT-B stage-0
-block. The same numpy inputs, per-image scale and shift and cotangent go to
+geometry of tests/test_mlp_op.py, (2, 256, 96, 384), a ScOT-B stage-0
+block, and (2, 128, 48, 192), a ScOT-T/S stage-0 width. The same numpy inputs, per-image scale and shift and cotangent go to
 both sides; gradients of x, the MLP weights and biases, scale and shift.
 
 Tolerances: fp32 atol 2e-5, rtol 1e-4 (the Pallas erf is within 1.5e-7 of
@@ -75,7 +75,7 @@ def port(x, w1, b1, w2, b2, scale, shift, dy, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("b,l,c,f", [(3, 128, 32, 128), (2, 256, 96, 384)])
+@pytest.mark.parametrize("b,l,c,f", [(3, 128, 32, 128), (2, 256, 96, 384), (2, 128, 48, 192)])
 def test_matches_jax_fused_mlp_cln_and_vjp(b, l, c, f, dtype, monkeypatch):
     fwd = _spy(monkeypatch, jmlp, "_call_fwd_dm_cln")
     bwd = _spy(monkeypatch, jmlp, "_call_bwd_dm_cln")

@@ -72,7 +72,7 @@ def _data(m, c, seed, shape=None):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("n,l,c", [(2, 128, 32), (1, 256, 96)])
+@pytest.mark.parametrize("n,l,c", [(2, 128, 32), (1, 256, 96), (2, 128, 48)])
 def test_matches_jax_dmajor_branch(n, l, c, dtype, monkeypatch):
     calls = _spy(monkeypatch, jmlp, "_call_bwd_dm")
     plain = _spy(monkeypatch, mlp_op, "mlp_bwd_plain")

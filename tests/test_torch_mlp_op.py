@@ -1,7 +1,7 @@
 """The port's fused MLP op (the kernel's plain version, which a CPU tensor
 gets) against the JAX package's ``fused_mlp`` on both of its Pallas
 branches (D-major and token-major rows, interpret mode), and the port's
-dispatch rule against the JAX package's choice at ScOT-B and ScOT-L
+dispatch rule against the JAX package's choice at ScOT-T, -S, -B and -L
 geometries. fp32 atol/rtol 1e-5 (the Pallas kernels' erf is within 1.5e-7
 of the exact one), bf16 3e-2."""
 
@@ -46,7 +46,7 @@ def jax_op(x, w1, b1, w2, b2, dtype, **kw):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("n,l,c", [(2, 128, 32), (1, 256, 96)])
+@pytest.mark.parametrize("n,l,c", [(2, 128, 32), (1, 256, 96), (2, 128, 48)])
 def test_matches_jax_dmajor_branch(n, l, c, dtype, monkeypatch):
     called = []
     orig = jmlp._call_fwd_dm
@@ -111,7 +111,7 @@ def _jax_choice(c, l, min_win_tile, batch=2):
     return took
 
 
-@pytest.mark.parametrize("size", ["B", "L"])
+@pytest.mark.parametrize("size", ["T", "S", "B", "L"])
 def test_dispatch_rule_matches_jax_choice(size):
     jcfg = jmake_config(size, image_size=128, num_channels=4, num_out_channels=4)
     pcfg = pt.make_config(size, image_size=128, num_channels=4, num_out_channels=4)
