@@ -62,7 +62,25 @@ Phases, one JSON line each (any failure ends the run with a non-zero exit):
    ("model_T", "train_T"), launches one attention kernel per block and the
    MLP kernel at stages 0-1 (C = 48 and 96): 32/16 per forward, 32/32/16/16
    per step;
-14. the kernels line; 15. the device line, last.
+14. general kernels ("general_kernel"): the fp32-FMA attention and MLP
+   kernels against their plain versions, forward and backward (two backward
+   calls bit-identical), at every ScOT-B attention and MLP shape in fp32,
+   ScOT-T's with heads (2, 4, 8, 16) (D = 24) and mlp_ratio 3 (F = 144,
+   288) in bf16, ScOT-T's MLP in fp32 and a 24x24 window (T = 576) in bf16
+   and fp32; fp32 held by relative L2 <= 1e-4, bf16 as the wgmma phases;
+   times, library times and bounds as in 2 and 6 (fp32 at the fp32 FMA
+   rate);
+15. ScOT-T in fp32 ("model_T_fp32", "train_T_fp32"; kernel path vs plain
+   path relative L2 <= 1e-4, forward and gradients; every attention and MLP
+   call on the general kernels: 32/16 per forward) and ScOT-T with heads
+   (2, 4, 8, 16) and mlp_ratio 3 in bf16 ("model_T_odd", "train_T_odd"; the
+   bf16 gates of 3 and 7; the general kernels again);
+16. trainer: the port's Trainer on a synthetic CE-Gauss file (see
+   ``phase_trainer``): ScOT-B train with mid-epoch checkpoints, evaluate,
+   predict with two AR steps, and a resumed run held to the uninterrupted
+   one bit for bit; steps/s beside the bare step, the loader's time, the
+   device idle share, launches per step (64/64/32/32);
+17. the kernels line; 18. the device line, last.
 
 Exits non-zero without printing results when CUDA is absent.
 """
@@ -71,12 +89,14 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -110,21 +130,41 @@ def cuda_ms(fn, iters: int = ITERS, warmup: int = 3) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def device_ms(fn, iters: int = 10) -> float:
+def device_ms(fn, iters: int = 10, by_kernel: bool = False):
     """Device time of one call: torch.profiler's device-side kernel time over
     ``iters`` calls, divided by ``iters``. Unlike ``cuda_ms`` it leaves out
-    the host's gaps between a call's launches (its wrapper, allocations)."""
-    from torch.profiler import ProfilerActivity, profile
+    the host's gaps between a call's launches (its wrapper, allocations).
+    The profiler runs a warm-up cycle of ``iters`` calls before the recorded
+    one: without it, it dropped some or all of a cycle's kernel records (run
+    4 of PR 6). None when it recorded no device time. With ``by_kernel``,
+    also the time of each kernel (by its name up to the template arguments)
+    a call."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(dev_us(e) for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
-    return total / 1e3 / iters
+    recorded = []
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: recorded.append(p.key_averages())) as prof:
+        for _ in range(2):
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    kernels = [e for e in recorded[0] if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.key.startswith("ProfilerStep")]
+    total = sum(dev_us(e) for e in kernels)
+    ms = total / 1e3 / iters if total > 0 else None
+    if not by_kernel:
+        return ms
+    names = {}
+    for e in kernels:
+        name = e.key.replace("(anonymous namespace)", "").split("<")[0].split("(")[0]
+        name = name.split("::")[-1].split(" ")[-1]
+        names[name] = names.get(name, 0.0) + dev_us(e) / 1e3 / iters
+    return ms, names
 
 
 def dev_us(evt):
@@ -204,10 +244,10 @@ def attention_cases(pt):
     return out
 
 
-def attention_case(attn_mod, n, t, heads, d, nw, window, res, shift, gen):
+def attention_case(attn_mod, n, t, heads, d, nw, window, res, shift, gen, dtype=torch.bfloat16):
     c = heads * d
     dev = "cuda"
-    qkv = torch.randn(n, t, 3 * c, generator=gen).to(dev, torch.bfloat16)
+    qkv = torch.randn(n, t, 3 * c, generator=gen).to(dev, dtype)
     qb = (0.1 * torch.randn(c, generator=gen)).to(dev)
     bias = 16.0 * torch.sigmoid(torch.randn(heads, t, t, generator=gen))
     if nw > 1:
@@ -257,22 +297,23 @@ def attention_library_bwd(q, k, v, bm, scale, do):
     return lambda: torch.autograd.grad(out, leaves, dor, retain_graph=True)
 
 
-def attention_bwd_bound(n, t, heads, d, nw, bound_ms):
+def attention_bwd_bound(n, t, heads, d, nw, bound_ms, es=2):
     """Scores once (the probabilities are not stored), dp, dv, dq, dk: 10 T^2 D
     FLOPs a pair; qkv, do, bm, qb and scale read once, dqkv, dbm, dqb and
-    dscale written once."""
+    dscale written once. ``es``: bytes an operand (4: fp32, at the fp32 FMA
+    rate)."""
     c = heads * d
     flops = 10.0 * n * heads * t * t * d
-    nbytes = (2 * n * t * 3 * c * 2 + n * t * c * 2 + 2 * nw * heads * t * t * 4
+    nbytes = (2 * n * t * 3 * c * es + n * t * c * es + 2 * nw * heads * t * t * 4
               + 2 * (c + heads) * 4)
-    return bound_ms(flops, nbytes)
+    return bound_ms(flops, nbytes, fp32=es == 4)
 
 
-def mlp_bwd_bound(m, c, f, bound_ms):
+def mlp_bwd_bound(m, c, f, bound_ms, es=2):
     """u (recomputed), dh, dx, dW1, dW2: 10 M C F FLOPs; x, dy, W1, W2, b1
     read once, dx, dW1, dW2, db1, db2 written once."""
-    nbytes = 3 * m * c * 2 + 2 * c * f * 2 + f * 4 + 2 * c * f * 4 + (f + c) * 4
-    return bound_ms(10.0 * m * c * f, nbytes)
+    nbytes = 3 * m * c * es + 2 * c * f * es + f * 4 + 2 * c * f * 4 + (f + c) * 4
+    return bound_ms(10.0 * m * c * f, nbytes, fp32=es == 4)
 
 
 # The MLP's second floor: the GELU (forward) or the GELU and its derivative
@@ -315,18 +356,19 @@ def backward_ok(errs, out, ref, again, tol, close=1):
             and all(r["rel_l2"] <= SUM_REL_TOL for r in list(errs.values())[close:]))
 
 
-def attention_bound(n, t, heads, d, nw, bound_ms):
+def attention_bound(n, t, heads, d, nw, bound_ms, es=2):
     c = heads * d
     flops = 4.0 * n * heads * t * t * d
-    nbytes = n * t * 3 * c * 2 + c * 4 + nw * heads * t * t * 4 + heads * 4 + n * t * c * 2
-    return bound_ms(flops, nbytes)
+    nbytes = n * t * 3 * c * es + c * 4 + nw * heads * t * t * 4 + heads * 4 + n * t * c * es
+    return bound_ms(flops, nbytes, fp32=es == 4)
 
 
-def mlp_case(m, c, f, gen):
-    """x (M, C), w1 (F, C), w2 (C, F) bf16 and b1, b2 fp32 on the card."""
-    x = torch.randn(m, c, generator=gen).to("cuda", torch.bfloat16)
-    w1 = (torch.randn(f, c, generator=gen) / math.sqrt(c)).to("cuda", torch.bfloat16)
-    w2 = (torch.randn(c, f, generator=gen) / math.sqrt(f)).to("cuda", torch.bfloat16)
+def mlp_case(m, c, f, gen, dtype=torch.bfloat16):
+    """x (M, C), w1 (F, C), w2 (C, F) in ``dtype`` (bf16 by default) and b1,
+    b2 fp32 on the card."""
+    x = torch.randn(m, c, generator=gen).to("cuda", dtype)
+    w1 = (torch.randn(f, c, generator=gen) / math.sqrt(c)).to("cuda", dtype)
+    w2 = (torch.randn(c, f, generator=gen) / math.sqrt(f)).to("cuda", dtype)
     b1 = (0.1 * torch.randn(f, generator=gen)).to("cuda")
     b2 = (0.1 * torch.randn(c, generator=gen)).to("cuda")
     return x, w1, b1, w2, b2
@@ -728,14 +770,186 @@ def phase_fused_attention(pt, wa, mlp_op, attn_mod, bound_ms, card):
 
 
 # ---------------------------------------------------------------------------
+# The general kernels: fp32 operands, and the shapes the wgmma kernels refuse
+# ---------------------------------------------------------------------------
+
+FP32_REL_TOL = 1e-4   # fp32 kernel vs fp32 plain version (TF32 off): relative L2, sum order only
+ODD = {"num_heads": (2, 4, 8, 16), "mlp_ratio": 3.0}  # ScOT-T with D = 24 and F = 3C
+
+
+def general_attention_cases(pt):
+    """(model, tag, n_windows, T, heads, D, nW, window, res, shift, dtype) of
+    the calls the general attention kernel serves: every attention block
+    kind of ScOT-B in fp32, of ScOT-T with heads (2, 4, 8, 16) (D = 24) in
+    bf16, and a 24x24 window (T = 576, D = 32, shifted, on a 48x48 token
+    map) in bf16 and fp32, all at batch 32."""
+    cfg_b = pt.make_config("B", image_size=128, num_channels=4, num_out_channels=4)
+    cfg_odd = pt.make_config("T", image_size=128, num_channels=4, num_out_channels=4, **ODD)
+    out = [("B-fp32", *geo, torch.float32) for geo in attention_shapes(cfg_b, BATCH)]
+    out += [("T-odd", *geo, torch.bfloat16) for geo in attention_shapes(cfg_odd, BATCH)]
+    out += [("W24", "T576_shifted", BATCH * 4, 576, 3, 32, 4, 24, 48, 12, dt)
+            for dt in (torch.bfloat16, torch.float32)]
+    return out
+
+
+def general_mlp_cases(pt, mlp_op):
+    """(model, tag, M, C, F, dtype) of the calls the general MLP kernel
+    serves on the main paths: ScOT-B and ScOT-T stages 0-1 in fp32, and
+    ScOT-T's with mlp_ratio 3 (F = 144 and 288) in bf16, batch 32."""
+    out = []
+    for model_name, size, over, dt in (("B-fp32", "B", {}, torch.float32),
+                                       ("T-fp32", "T", {}, torch.float32),
+                                       ("T-odd", "T", ODD, torch.bfloat16)):
+        cfg = pt.make_config(size, image_size=128, num_channels=4, num_out_channels=4, **over)
+        out += [(model_name, *shape, dt) for shape in mlp_shapes(cfg, BATCH, mlp_op)]
+    return out
+
+
+def general_ok(errs, out, ref, fp32, tol, again=None):
+    """fp32: every output within FP32_REL_TOL relative L2; bf16: the first
+    output allclose atol = rtol = tol and the summed ones by relative L2 as
+    the wgmma phases; all finite; ``again`` (a second backward call)
+    bit-identical."""
+    finite = all(bool(torch.isfinite(o.float()).all()) for o in out)
+    same = again is None or all(torch.equal(x, y) for x, y in zip(out, again))
+    if fp32:
+        close = all(e["rel_l2"] <= FP32_REL_TOL for e in errs.values())
+    else:
+        o, r = out[0].float(), ref[0].float()
+        close = (bool(((o - r).abs() <= tol + tol * r.abs()).all())
+                 and all(e["rel_l2"] <= SUM_REL_TOL for e in list(errs.values())[1:]))
+    return finite and same and close
+
+
+def general_tol(fp32, tol, sums):
+    if fp32:
+        return f"every output rel L2 <= {FP32_REL_TOL} vs the fp32 plain version (TF32 off)"
+    return f"{sums[0]} allclose atol=rtol={tol}" + (
+        f"; {', '.join(sums[1:])} rel L2 <= {SUM_REL_TOL}" if len(sums) > 1 else "")
+
+
+def phase_general_kernels(pt, wa, mlp_op, attn_mod, bound_ms, card):
+    """The general kernels against their plain versions at the shapes of
+    ``general_attention_cases`` and ``general_mlp_cases``: forward and
+    backward, two backward calls compared bit for bit, kernel (events and
+    device time), plain and library times (SDPA, or F.linear / F.gelu /
+    F.linear, in the operands' dtype, TF32 off), and the bound (fp32
+    operands at the fp32 FMA rate)."""
+    gen = torch.Generator().manual_seed(11)
+    results = {"attention_fwd": [], "attention_bwd": [], "mlp_fwd": [], "mlp_bwd": []}
+
+    def row(kernel, model_name, shape, errs, ok, tol, timed, lib, bms_by, **extra):
+        dev, by_kernel = device_ms(timed[0], by_kernel=True)
+        r = {"phase": "general_kernel", "kernel": kernel, "model": model_name, "shape": shape,
+             "errors": errs, "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+             "tol": tol, "ok": ok, "kernel_ms": cuda_ms(timed[0]), "plain_ms": cuda_ms(timed[1]),
+             "library_ms": cuda_ms(lib), "kernel_device_ms": dev,
+             "device_ms_by_kernel": by_kernel,
+             "library_device_ms": device_ms(lib), "bound_ms": bms_by[0], "bound_by": bms_by[1],
+             **extra, "card": card}
+        emit(r)
+        if not ok:
+            raise SystemExit(f"{kernel} disagrees at {model_name} {shape}")
+        return r
+
+    for model_name, tag, n, t, heads, d, nw, window, res, shift, dt in general_attention_cases(pt):
+        fp32, es = dt == torch.float32, 4 if dt == torch.float32 else 2
+        qkv, qb, bm, scale = attention_case(attn_mod, n, t, heads, d, nw, window, res, shift,
+                                            gen, dt)
+        do = torch.randn(n, t, heads * d, generator=gen).to("cuda", dt)
+        shape = f"{tag} {dtype_name(dt)}: windows={n} T={t} H={heads} D={d} nW={nw}"
+        kind = wa.attention_kernel_for(dt, t, d)
+        before = wa.window_attention.launches_general
+        out = wa.window_attention(qkv, qb, bm, scale, heads)
+        ref = wa.window_attention_plain(qkv, qb, bm, scale, heads)
+        torch.cuda.synchronize()
+        errs = compare(("out",), (out,), (ref,))
+        ok = (kind == "general" and wa.window_attention.launches_general == before + 1
+              and general_ok(errs, (out,), (ref,), fp32, ATTN_TOL))
+        q, k, v = split_qkv(qkv, qb, heads)
+        results["attention_fwd"].append(row(
+            "window_attention_general_fwd", model_name, shape, errs, ok,
+            general_tol(fp32, ATTN_TOL, ("out",)),
+            (lambda: wa.window_attention(qkv, qb, bm, scale, heads),
+             lambda: wa.window_attention_plain(qkv, qb, bm, scale, heads)),
+            attention_library_call(q, k, v, bm, scale),
+            attention_bound(n, t, heads, d, nw, bound_ms, es)))
+        del out, ref
+        args = (qkv, qb, bm, scale, heads, do)
+        out = wa.window_attention_bwd(*args)
+        again = wa.window_attention_bwd(*args)
+        ref = wa.window_attention_bwd_plain(*args)
+        torch.cuda.synchronize()
+        names = ("dqkv", "dqb", "dbm", "dscale")
+        errs = compare(names, out, ref)
+        results["attention_bwd"].append(row(
+            "window_attention_general_bwd", model_name, shape, errs,
+            general_ok(errs, out, ref, fp32, ATTN_TOL, again),
+            general_tol(fp32, ATTN_TOL, names) + "; second call bit-identical",
+            (lambda: wa.window_attention_bwd(*args), lambda: wa.window_attention_bwd_plain(*args)),
+            attention_library_bwd(q, k, v, bm, scale, do),
+            attention_bwd_bound(n, t, heads, d, nw, bound_ms, es)))
+        del qkv, do, out, again, ref, q, k, v
+    for model_name, tag, m, c, f, dt in general_mlp_cases(pt, mlp_op):
+        fp32, es = dt == torch.float32, 4 if dt == torch.float32 else 2
+        x, w1, b1, w2, b2 = mlp_case(m, c, f, gen, dt)
+        dy = torch.randn(m, c, generator=gen).to("cuda", dt)
+        shape = f"{tag} {dtype_name(dt)}: M={m} C={c} F={f}"
+        b1l, b2l = b1.to(dt), b2.to(dt)
+        before = mlp_op.mlp.launches_general
+        out = mlp_op.mlp(x, w1, b1, w2, b2)
+        ref = mlp_op.mlp_plain(x, w1, b1, w2, b2)
+        torch.cuda.synchronize()
+        errs = compare(("out",), (out,), (ref,))
+        ok = (mlp_op.mlp_kernel_for(c, f, dt) == "general"
+              and mlp_op.mlp.launches_general == before + 1
+              and general_ok(errs, (out,), (ref,), fp32, MLP_TOL))
+        nbytes = 2 * m * c * es + 2 * c * f * es + (f + c) * 4
+        results["mlp_fwd"].append(row(
+            "mlp_general_fwd", model_name, shape, errs, ok, general_tol(fp32, MLP_TOL, ("out",)),
+            (lambda: mlp_op.mlp(x, w1, b1, w2, b2), lambda: mlp_op.mlp_plain(x, w1, b1, w2, b2)),
+            lambda: F.linear(F.gelu(F.linear(x, w1, b1l)), w2, b2l),
+            bound_ms(4.0 * m * c * f, nbytes, fp32=fp32)))
+        del out, ref
+        args = (x, w1, b1, w2, dy)
+        out = mlp_op.mlp_bwd(*args)
+        again = mlp_op.mlp_bwd(*args)
+        ref = mlp_op.mlp_bwd_plain(*args)
+        torch.cuda.synchronize()
+        names = ("dx", "dw1", "db1", "dw2", "db2")
+        errs = compare(names, out, ref)
+        leaves = [a.detach().requires_grad_() for a in (x, w1, b1l, w2, b2l)]
+        lib_out = F.linear(F.gelu(F.linear(leaves[0], leaves[1], leaves[2])), leaves[3], leaves[4])
+        results["mlp_bwd"].append(row(
+            "mlp_general_bwd", model_name, shape, errs,
+            general_ok(errs, out, ref, fp32, MLP_TOL, again),
+            general_tol(fp32, MLP_TOL, names) + "; second call bit-identical",
+            (lambda: mlp_op.mlp_bwd(*args), lambda: mlp_op.mlp_bwd_plain(*args)),
+            lambda: torch.autograd.grad(lib_out, leaves, dy, retain_graph=True),
+            mlp_bwd_bound(m, c, f, bound_ms, es),
+            splits=mlp_op.general_bwd_splits(m, c, f)))
+        del x, dy, out, again, ref, lib_out, leaves
+    return results
+
+
+
+# ---------------------------------------------------------------------------
 # Model and rollout
 # ---------------------------------------------------------------------------
 
-COUNTERS = (("window_attention_fwd", "window_attention"), ("window_attention_bwd", "window_attention_bwd"),
-            ("fused_mlp_fwd", "mlp"), ("fused_mlp_bwd", "mlp_bwd"),
-            ("fused_window_attention_fwd", "fused_window_attention"),
-            ("fused_window_attention_bwd", "fused_window_attention_bwd"),
-            ("mlp_cln_fwd", "mlp_cln"), ("mlp_cln_bwd", "mlp_cln_bwd"))
+COUNTERS = (("window_attention_fwd", "window_attention", "launches"),
+            ("window_attention_bwd", "window_attention_bwd", "launches"),
+            ("fused_mlp_fwd", "mlp", "launches"), ("fused_mlp_bwd", "mlp_bwd", "launches"),
+            ("fused_window_attention_fwd", "fused_window_attention", "launches"),
+            ("fused_window_attention_bwd", "fused_window_attention_bwd", "launches"),
+            ("mlp_cln_fwd", "mlp_cln", "launches"), ("mlp_cln_bwd", "mlp_cln_bwd", "launches"),
+            ("window_attention_general_fwd", "window_attention", "launches_general"),
+            ("window_attention_general_bwd", "window_attention_bwd", "launches_general"),
+            ("fused_window_attention_general_fwd", "fused_window_attention", "launches_general"),
+            ("fused_window_attention_general_bwd", "fused_window_attention_bwd",
+             "launches_general"),
+            ("mlp_general_fwd", "mlp", "launches_general"),
+            ("mlp_general_bwd", "mlp_bwd", "launches_general"))
 
 
 def _wrapper(wa, mlp_op, attr):
@@ -744,16 +958,16 @@ def _wrapper(wa, mlp_op, attr):
 
 def launches(**nonzero):
     """The expected counts of a run: every kernel 0 but those named."""
-    return {name: nonzero.get(name, 0) for name, _ in COUNTERS}
+    return {name: nonzero.get(name, 0) for name, _, _ in COUNTERS}
 
 
 def reset_counts(wa, mlp_op):
-    for _, attr in COUNTERS:
-        _wrapper(wa, mlp_op, attr).launches = 0
+    for _, attr, field in COUNTERS:
+        setattr(_wrapper(wa, mlp_op, attr), field, 0)
 
 
 def read_counts(wa, mlp_op):
-    return {name: _wrapper(wa, mlp_op, attr).launches for name, attr in COUNTERS}
+    return {name: getattr(_wrapper(wa, mlp_op, attr), field) for name, attr, field in COUNTERS}
 
 
 @torch.no_grad()
@@ -791,31 +1005,60 @@ def perturb_attention(model, attention_cls, gen, tail=False):
                 draw(s.value.bias, 0.05)
 
 
-def block_kernels(model, mlp_op, fused_tail=False):
-    """(Swin blocks, blocks that take the MLP kernel, blocks that take the
-    fused tail) of a model: the kernel launches its forward should make."""
+def block_launches(model, wa, mlp_op, fused_tail=False, backward=False):
+    """The kernel launches a forward (with ``backward``, a forward and its
+    backward) of the model should make: per Swin block the attention kernel
+    that ``attention_kernel_for`` picks, and the MLP kernel that
+    ``use_mlp_kernel`` and ``mlp_kernel_for`` pick, or the fused tail where
+    ``use_fused_tail`` takes the block."""
     from poseidon_tpu_torch.models.scot import SwinBlock
-    blocks = [m for m in model.modules() if isinstance(m, SwinBlock)]
-    shapes = [(b.intermediate.dense.in_features, b.resolution ** 2) for b in blocks]
-    tail = sum(1 for c, l in shapes if fused_tail and mlp_op.use_fused_tail(c, l))
-    mlp = sum(1 for c, l in shapes if mlp_op.use_mlp_kernel(c, l)) - tail
-    return len(blocks), mlp, tail
+    want = launches()
+    for blk in (m for m in model.modules() if isinstance(m, SwinBlock)):
+        attn = blk.attention
+        kind = wa.attention_kernel_for(model.dtype, attn.window_size ** 2,
+                                       attn.dim // attn.num_heads)
+        names = ["window_attention_general" if kind == "general" else "window_attention"]
+        fc = blk.intermediate.dense
+        c, f, l = fc.in_features, fc.out_features, blk.resolution ** 2
+        if fused_tail and mlp_op.use_fused_tail(c, l, f, model.dtype):
+            names.append("mlp_cln")
+        elif mlp_op.use_mlp_kernel(c, l, f):
+            names.append("fused_mlp" if mlp_op.mlp_kernel_for(c, f, model.dtype) == "wgmma"
+                         else "mlp_general")
+        for name in names:
+            want[name + "_fwd"] += 1
+            if backward:
+                want[name + "_bwd"] += 1
+    return want
 
 
-def phase_model(pt, wa, mlp_op, attn_mod, card, fused_tail=False, size="B"):
+def swin_blocks(model):
+    from poseidon_tpu_torch.models.scot import SwinBlock
+    return sum(1 for m in model.modules() if isinstance(m, SwinBlock))
+
+
+def dtype_name(dtype):
+    return "fp32" if dtype == torch.float32 else "bf16"
+
+
+def phase_model(pt, wa, mlp_op, attn_mod, card, fused_tail=False, size="B",
+                dtype=torch.bfloat16, overrides=None, tol=MODEL_REL_TOL, name=None):
     """The ScOT-B (or ``size``) forward, kernel path against plain path;
     with ``fused_tail``, under ``fused_block_tail=True`` (phase
     "fused_tail_model", the MLP + norm + residual kernel at stages 0-1 in
     place of the MLP kernel), the post-MLP norm scales set to about 1 as
-    well. Phase "model_T" is ScOT-T's (D = 16 at every stage)."""
+    well. Phase "model_T" is ScOT-T's (D = 16 at every stage); ``dtype``,
+    config ``overrides``, the tolerance and the phase ``name`` serve the
+    general kernels' model phases."""
     cfg = pt.make_config(size, image_size=128, num_channels=4, num_out_channels=4,
                          channel_slice_list=(0, 1, 3, 4), use_conditioning=True,
-                         attention_impl="pallas", fused_block_tail=fused_tail)
+                         attention_impl="pallas", fused_block_tail=fused_tail,
+                         **(overrides or {}))
     t0 = time.perf_counter()
-    model = pt.build_model(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
+    model = pt.build_model(cfg, device="cuda", dtype=dtype, seed=0)
     perturb_attention(model, attn_mod.WindowAttention, torch.Generator().manual_seed(3),
                       tail=fused_tail)
-    plain = pt.ScOT(cfg.replace(attention_impl="xla"), dtype=torch.bfloat16)
+    plain = pt.ScOT(cfg.replace(attention_impl="xla"), dtype=dtype)
     plain.load_state_dict(model.state_dict(), strict=True)
     plain = plain.to("cuda").eval()
     build_s = time.perf_counter() - t0
@@ -832,27 +1075,27 @@ def phase_model(pt, wa, mlp_op, attn_mod, card, fused_tail=False, size="B"):
         counts = read_counts(wa, mlp_op)
         fwd_ms = host_ms(lambda: model(x, t), iters=5)
         plain_fwd_ms = host_ms(lambda: plain(x, t), iters=5)
-    rel = float((y - y_plain).norm() / y_plain.norm())
-    blocks, mlp, tail = block_kernels(model, mlp_op, fused_tail)
-    want = (launches(window_attention_fwd=blocks, mlp_cln_fwd=tail, fused_mlp_fwd=mlp)
-            if fused_tail else launches(window_attention_fwd=blocks, fused_mlp_fwd=mlp))
+    rel = float((y.float() - y_plain.float()).norm() / y_plain.float().norm())
+    want = block_launches(model, wa, mlp_op, fused_tail)
     ok = (tuple(y.shape) == (BATCH, 4, 128, 128) and bool(torch.isfinite(y).all())
-          and rel <= MODEL_REL_TOL and counts == want)
+          and rel <= tol and counts == want)
     suffix = "" if size == "B" else f"_{size}"
-    emit({"phase": "fused_tail_model" if fused_tail else "model" + suffix,
-          "model": f"ScOT-{size} 128x128 c4 bf16 conditioned"
-                   + (", fused_block_tail" if fused_tail else ""), "batch": BATCH,
+    name = name or ("fused_tail_model" if fused_tail else "model" + suffix)
+    emit({"phase": name,
+          "model": f"ScOT-{size} 128x128 c4 {dtype_name(dtype)} conditioned"
+                   + (", fused_block_tail" if fused_tail else "")
+                   + (f", {overrides}" if overrides else ""), "batch": BATCH,
           "weights": "seed 0 init; CPB MLP, logit scales, q/v biases redrawn (seed 3); "
                      "embedding and post-attention norm scales 1"
                      + ("; post-MLP norm scales 1" if fused_tail else ""),
           "params": sum(p.numel() for p in model.parameters()), "build_s": build_s,
-          "rel_l2_vs_plain_path": rel, "tol": MODEL_REL_TOL,
+          "rel_l2_vs_plain_path": rel, "tol": tol, "launches_expected": want,
           "out_rms": float(y.float().pow(2).mean().sqrt()),
           "forward_ms": fwd_ms, "samples_per_s": BATCH / (fwd_ms / 1e3),
           "plain_path_forward_ms": plain_fwd_ms, "launches_per_forward": counts,
           "ok": ok, "card": card})
     if not ok:
-        raise SystemExit(f"{'fused_tail_' if fused_tail else ''}model phase failed (ScOT-{size})")
+        raise SystemExit(f"{name} phase failed (ScOT-{size})")
     return model, x, t, counts, fwd_ms
 
 
@@ -922,16 +1165,18 @@ BLOCK_GRADS = ("attention.self.query.weight", "attention.self.key.weight",
 TAIL_GRADS = BLOCK_GRADS + ("layernorm_after.weight.weight", "layernorm_after.bias.weight")
 
 
-def phase_train(pt, wa, mlp_op, model, card, fused_tail=False, size="B"):
+def phase_train(pt, wa, mlp_op, model, card, fused_tail=False, size="B", tol=GRAD_REL_TOL,
+                name=None):
     """The ScOT-B (or the model's size) train step on the card: gradients of the kernel path
     against the plain path on the same weights and batch, launches per
     step, then TRAIN_STEPS steps on that batch (lr 1e-4, weight decay 1e-6,
     cosine over 10,000 steps, clip 5.0, as bench.py) and the step's time.
     With ``fused_tail`` the model is the fused-tail one (phase
-    "fused_tail_train")."""
+    "fused_tail_train"); ``tol`` and the phase ``name`` serve the general
+    kernels' model phases."""
     block_grads = TAIL_GRADS if fused_tail else BLOCK_GRADS
     batch = train_batch()
-    plain = pt.ScOT(model.config.replace(attention_impl="xla"), dtype=torch.bfloat16)
+    plain = pt.ScOT(model.config.replace(attention_impl="xla"), dtype=model.dtype)
     plain.load_state_dict(model.state_dict(), strict=True)
     plain = plain.to("cuda")
     loss_plain, g_plain = loss_and_grads(pt, plain, batch)
@@ -969,20 +1214,19 @@ def phase_train(pt, wa, mlp_op, model, card, fused_tail=False, size="B"):
     torch.cuda.reset_peak_memory_stats()
     step_ms = host_ms(step, iters=5)
     peak = torch.cuda.max_memory_allocated()
-    blocks, mlp, tail = block_kernels(model, mlp_op, fused_tail)
-    want = launches(window_attention_fwd=blocks, window_attention_bwd=blocks, mlp_cln_fwd=tail,
-                    mlp_cln_bwd=tail, fused_mlp_fwd=mlp, fused_mlp_bwd=mlp)
-    ok = (not bad and not zero and blocks_checked == blocks and rel <= GRAD_REL_TOL
-          and math.isfinite(loss_kernel) and abs(loss_kernel - loss_plain) <= GRAD_REL_TOL * abs(loss_plain)
+    want = block_launches(model, wa, mlp_op, fused_tail, backward=True)
+    ok = (not bad and not zero and blocks_checked == swin_blocks(model) and rel <= tol
+          and math.isfinite(loss_kernel) and abs(loss_kernel - loss_plain) <= tol * abs(loss_plain)
           and grad_counts == want and step_counts == want
           and all(math.isfinite(v) for v in losses) and losses[-1] < losses[0])
     suffix = "" if size == "B" else f"_{size}"
-    emit({"phase": "fused_tail_train" if fused_tail else "train" + suffix,
-          "model": f"ScOT-{size} 128x128 c4 bf16 conditioned, fp32 parameters"
-                   + (", fused_block_tail" if fused_tail else ""),
+    name = name or ("fused_tail_train" if fused_tail else "train" + suffix)
+    emit({"phase": name,
+          "model": f"ScOT-{size} 128x128 c4 {dtype_name(model.dtype)} conditioned, fp32 "
+                   f"parameters" + (", fused_block_tail" if fused_tail else ""),
           "batch": BATCH, "weights": "those of the model phase",
           "loss_kernel_path": loss_kernel, "loss_plain_path": loss_plain,
-          "grad_rel_l2_vs_plain_path": rel, "tol": GRAD_REL_TOL,
+          "grad_rel_l2_vs_plain_path": rel, "tol": tol,
           "params_without_finite_grad": bad, "block_grads_checked": list(block_grads),
           "block_params_with_zero_grad": zero,
           "blocks_checked": blocks_checked, "launches_per_grad": grad_counts,
@@ -992,7 +1236,7 @@ def phase_train(pt, wa, mlp_op, model, card, fused_tail=False, size="B"):
           "samples_per_s": BATCH / (step_ms / 1e3), "peak_memory_gib": peak / 2 ** 30,
           "ok": ok, "card": card})
     if not ok:
-        raise SystemExit(f"{'fused_tail_' if fused_tail else ''}train phase failed (ScOT-{size})")
+        raise SystemExit(f"{name} phase failed (ScOT-{size})")
     return step, step_counts, step_ms
 
 
@@ -1074,12 +1318,288 @@ def phase_tail_vs_unfused(model, tail_model, x, t, step, tail_step, card):
     emit(out)
 
 
+# ---------------------------------------------------------------------------
+# The Trainer on a synthetic CE-Gauss file
+# ---------------------------------------------------------------------------
+
+TRAIN_TRAJ = 4  # x 36 (t1, t2) pairs = 144 samples: 4 steps an epoch at batch 32
+
+
+def write_ce_gauss(path):
+    """A sparse synthetic CE-Gauss file in the dataset's schema: ``data``
+    (10000, 21, 4, 128, 128) f32, and only the frames the splits below read
+    are written (train: trajectories [0, TRAIN_TRAJ), times 0-14 step 2;
+    val: its 120 trajectories at times 0 and 2). Each trajectory is a blocky
+    random field that decays in time, so that the operator is learnable. An
+    HDF5 file in (1, 1, 4, 128, 128) chunks where h5py is installed, else
+    the data layer's other format (``data/base.py::open_data_file``): a
+    directory holding ``data.npy``, a sparse memory-mapped file. Returns
+    (format, bytes written)."""
+    try:
+        import h5py
+    except ImportError:
+        h5py = None
+    rng = np.random.default_rng(0)
+    n_max, n_val, n_test = 10000, 120, 240
+    val0 = n_max - n_val - n_test
+    shape = (n_max, 21, 4, 128, 128)
+
+    def fill(d):
+        written = 0
+        for traj, times in ([(i, range(0, 15, 2)) for i in range(TRAIN_TRAJ)]
+                            + [(i, (0, 2)) for i in range(val0, val0 + n_val)]):
+            base = np.kron(rng.normal(size=(4, 16, 16)), np.ones((8, 8))).astype(np.float32)
+            base[0] += 1.5   # density and pressure around their dataset means
+            base[3] += 2.5
+            for tt in times:
+                d[traj, tt] = base * np.float32(np.exp(-0.03 * tt))
+                written += base.nbytes
+        return written
+
+    if h5py is not None:
+        with h5py.File(path, "w") as f:
+            return "hdf5", fill(f.create_dataset("data", shape=shape, dtype="f4",
+                                                 chunks=(1, 1, 4, 128, 128)))
+    os.makedirs(path)
+    d = np.lib.format.open_memmap(os.path.join(path, "data.npy"), mode="w+", dtype=np.float32,
+                                  shape=shape)
+    written = fill(d)
+    d.flush()
+    del d
+    return "npy", written
+
+
+def trace_busy(trace_dir):
+    """Device busy time (ms) and the span of the profiled window (ms) of the
+    Chrome trace the Trainer's profiler wrote: kernels, copies and sets on
+    the device, against the first to the last event."""
+    import glob
+    path = sorted(glob.glob(os.path.join(trace_dir, "*.json")))[-1]
+    with open(path) as fh:
+        events = [e for e in json.load(fh).get("traceEvents", [])
+                  if e.get("ph") == "X" and "dur" in e]
+    busy = sum(e["dur"] for e in events
+               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")) / 1e3
+    span = (max(e["ts"] + e["dur"] for e in events) - min(e["ts"] for e in events)) / 1e3
+    return busy, span
+
+
+def nondeterministic_grads(pt, model):
+    """The parameters whose gradients differ between two identical backward
+    passes (same weights, batch and masks), largest difference first: the
+    ops behind them are not deterministic on this card."""
+    batch = train_batch()
+    grads = []
+    model.train()
+    for _ in range(2):
+        model.zero_grad(set_to_none=True)
+        pred = pt.apply_pixel_mask(model(batch["pixel_values"], batch["time"]), batch["labels"],
+                                   batch["pixel_mask"])
+        pt.scot_loss(pred, batch["labels"], model.config).backward()
+        grads.append({n: p.grad.clone() for n, p in model.named_parameters()
+                      if p.grad is not None})
+    model.zero_grad(set_to_none=True)
+    diff = {n: float((grads[0][n] - grads[1][n]).abs().max()) for n in grads[0]}
+    return {n: d for n, d in sorted(diff.items(), key=lambda kv: -kv[1]) if d > 0}
+
+
+def phase_trainer(pt, wa, mlp_op, card, bare_step_ms):
+    """The port's Trainer on the card: ScOT-B (bf16 compute, fp32
+    parameters, attention_impl "pallas") on a synthetic CE-Gauss file
+    (``write_ce_gauss``) through ``get_dataset`` and the threaded loader; ``train`` for two
+    epochs of four steps at batch 32 with mid-epoch checkpoints
+    (``save_steps=2``) and a torch.profiler window over global steps 1-2;
+    ``evaluate`` on the val split (120 samples, the last batch padded) with
+    ChannelGroupMetrics; ``predict`` after ``set_ar_steps(2)``; the bare
+    train step on a fixed batch and on the loader's, in turns, around one
+    epoch of a Trainer without mid-epoch checkpoints; then a second
+    Trainer resumed from the mid-epoch checkpoint of epoch 1, whose step
+    losses and final weights are held to the uninterrupted run's bit for bit
+    (cuDNN deterministic for the phase). Where they differ, two identical
+    backward passes name the parameters whose gradients the card computes
+    nondeterministically; the phase then passes only if such parameters
+    exist and the step losses agree to 1e-5 relative."""
+    import shutil
+    import tempfile
+
+    from poseidon_tpu_torch.data.loader import DataLoader
+
+    det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    root = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
+    try:
+        t0 = time.perf_counter()
+        data_format, data_bytes = write_ce_gauss(os.path.join(root, "CE-Gauss.nc"))
+        data_s = time.perf_counter() - t0
+        name = "fluids.compressible.Gaussians"
+        train = pt.get_dataset(name, which="train", num_trajectories=TRAIN_TRAJ, data_path=root)
+        val = pt.get_dataset(name, which="val", num_trajectories=TRAIN_TRAJ, data_path=root,
+                             max_num_time_steps=1, fix_input_to_time_step=0)
+        cfg = pt.make_config("B", image_size=128, num_channels=4, num_out_channels=4,
+                             channel_slice_list=tuple(train.channel_slice_list),
+                             use_conditioning=True, attention_impl="pallas")
+        metrics = pt.ChannelGroupMetrics(train.channel_slice_list,
+                                         train.printable_channel_description)
+
+        def trainer(out, **kw):
+            model = pt.build_model(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
+            args = pt.TrainingArguments(**{
+                "output_dir": os.path.join(root, out), "train_batch_size": BATCH,
+                "eval_batch_size": BATCH, "num_train_epochs": 2, "learning_rate": 1e-4,
+                "weight_decay": 1e-6, "max_grad_norm": 5.0, "logging_steps": 1,
+                "save_steps": 2, "save_total_limit": 10, "num_workers": 8, **kw})
+            return pt.Trainer(model, args, train_dataset=train, compute_metrics=metrics,
+                              device="cuda")
+
+        def step_log(out):
+            with open(os.path.join(root, out, "logs.jsonl")) as fh:
+                return {r["step"]: r for r in map(json.loads, fh) if "step" in r}
+
+        # The loader alone: one epoch of batches from the file, no device.
+        loader = DataLoader(train, BATCH, shuffle=True, seed=0, num_workers=8)
+        t0 = time.perf_counter()
+        n_batches = sum(1 for _ in loader.epoch(0))
+        loader_ms = (time.perf_counter() - t0) * 1e3 / max(n_batches, 1)
+
+        full = trainer("full", profile_step_start=1, profile_step_stop=3)
+        reset_counts(wa, mlp_op)
+        t0 = time.perf_counter()
+        history = full.train()
+        torch.cuda.synchronize()
+        train_wall = time.perf_counter() - t0
+        counts = read_counts(wa, mlp_op)
+        steps = full.step
+        per_step = block_launches(full.model, wa, mlp_op, backward=True)
+        counts_ok = counts == {k: steps * v for k, v in per_step.items()}
+        busy_ms, span_ms = trace_busy(os.path.join(root, "full", "profile"))
+        t0 = time.perf_counter()
+        full.save_checkpoint(os.path.join(root, "scratch"), 9, 0.0)
+        ckpt_s = time.perf_counter() - t0
+        final = {k: v.clone() for k, v in full.model.state_dict().items()}
+        epoch1_s = history[-1]["train_time_s"]
+
+        t0 = time.perf_counter()
+        ev = full.evaluate(val)
+        eval_s = time.perf_counter() - t0
+        full.set_ar_steps(2)
+        t0 = time.perf_counter()
+        pred = full.predict(val)
+        predict_s = time.perf_counter() - t0
+        full.close()
+
+        # What the Trainer adds to the bare step: four bare train steps on
+        # one fixed device batch and four on the loader's batches through the
+        # Trainer's host-to-device prefetch, in turns (fixed, loader, loader,
+        # fixed), each ending in a synchronize.
+        fixed = train_batch()
+
+        def bare_fixed():
+            for _ in range(4):
+                pt.train_step(full.model, full.optimizer, full.scheduler, fixed, max_grad_norm=5.0)
+            return 4
+
+        def bare_loader(epoch):
+            n = 0
+            for _, dev in full._device_prefetch(loader.epoch(epoch)):
+                pt.train_step(full.model, full.optimizer, full.scheduler, dev, max_grad_norm=5.0)
+                n += 1
+            return n
+
+        def trainer_epoch():
+            # One epoch of a Trainer without mid-epoch checkpoints: its
+            # train_time_s (loader, steps and step logs; the checkpoint
+            # after the epoch is outside it) over its steps.
+            timed = trainer("timed", num_train_epochs=1, save_steps=None)
+            hist = timed.train()
+            timed.close()
+            return hist[0]["train_time_s"] * 1e3 / timed.step
+
+        turns = []
+        for run in (bare_fixed, lambda: bare_loader(2), lambda: bare_loader(3), bare_fixed):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n = run()
+            torch.cuda.synchronize()
+            turns.append((time.perf_counter() - t0) * 1e3 / n)
+            if len(turns) == 2:
+                trainer_step_ms = trainer_epoch()
+
+        # Resume: the output directory of a run stopped after epoch 1's
+        # mid-epoch checkpoint.
+        os.makedirs(os.path.join(root, "resumed"))
+        shutil.copytree(os.path.join(root, "full", "checkpoint-1-step2"),
+                        os.path.join(root, "resumed", "checkpoint-1-step2"))
+        resumed = trainer("resumed", resume_from_checkpoint=True)
+        resumed.train()
+        resumed.close()
+        want, got = step_log("full"), step_log("resumed")
+        loss_diff = {s: abs(got[s]["loss"] - want[s]["loss"]) for s in got}
+        weight_diff = {k: float((v.float() - final[k].float()).abs().max())
+                       for k, v in resumed.model.state_dict().items()}
+        worst = max(weight_diff, key=weight_diff.get)
+        bitwise = (sorted(got) == [7, 8]
+                   and all(got[s]["loss"] == want[s]["loss"]
+                           and got[s]["grad_norm"] == want[s]["grad_norm"] for s in got)
+                   and all(torch.equal(v, final[k])
+                           for k, v in resumed.model.state_dict().items()))
+        nondet = {} if bitwise else nondeterministic_grads(pt, resumed.model)
+        resume_ok = bitwise or (sorted(got) == [7, 8] and bool(nondet) and all(
+            loss_diff[s] <= 1e-5 * abs(want[s]["loss"]) for s in got))
+        pred_shape = list(pred.predictions.shape)
+        ok = (counts_ok and steps == 8 and all(math.isfinite(r["loss"]) for r in want.values())
+              and pred_shape == [len(val), 4, 128, 128]
+              and all(math.isfinite(v) for v in ev.values())
+              and math.isfinite(pred.metrics["loss"]) and resume_ok)
+        step_s = epoch1_s / 4
+        emit({"phase": "trainer", "model": "ScOT-B 128x128 c4 bf16 conditioned, fp32 parameters",
+              "data": f"synthetic CE-Gauss (fluids.compressible.Gaussians), train "
+                      f"{len(train)} samples ({TRAIN_TRAJ} trajectories), val {len(val)}",
+              "data_format": data_format, "data_write_s": data_s,
+              "data_bytes_written": data_bytes, "batch": BATCH,
+              "steps": steps, "train_wall_s": train_wall,
+              "epoch_train_time_s": [h["train_time_s"] for h in history],
+              "steps_per_s_epoch1": 1.0 / step_s, "samples_per_s_epoch1": BATCH / step_s,
+              "step_ms_epoch1": step_s * 1e3,
+              "note_epoch1": "epoch 1: 4 steps, loader and one mid-epoch checkpoint included",
+              "checkpoint_write_s": ckpt_s,
+              "steps_per_s_epoch1_without_checkpoint": 4 / max(epoch1_s - ckpt_s, 1e-9),
+              "bare_train_step_ms": bare_step_ms, "loader_ms_per_batch": loader_ms,
+              "bare_step_ms_fixed_batch": [turns[0], turns[3]],
+              "bare_step_ms_loader_batches": [turns[1], turns[2]],
+              "trainer_step_ms_no_checkpoint": trainer_step_ms,
+              "profiled_steps": [1, 2], "device_busy_ms_profiled": busy_ms,
+              "profiled_span_ms": span_ms,
+              "device_idle_share_of_profiled_span": max(0.0, 1.0 - busy_ms / span_ms),
+              "device_idle_share_vs_epoch1_step": max(0.0, 1.0 - busy_ms / 2 / (step_s * 1e3)),
+              "launches_per_step": {k: v / steps for k, v in counts.items() if v},
+              "launches_ok": counts_ok, "train_losses": [want[s]["loss"] for s in sorted(want)],
+              "eval": ev, "eval_s": eval_s, "predict_ar_steps": 2, "predict_shape": pred_shape,
+              "predict_metrics": {k: v for k, v in pred.metrics.items() if "/" not in k},
+              "predict_s": predict_s,
+              "resume": {"from": "checkpoint-1-step2", "steps_compared": sorted(got),
+                         "bitwise": bitwise, "cudnn_deterministic": True,
+                         "max_loss_diff": max(loss_diff.values()) if loss_diff else None,
+                         "max_weight_diff": weight_diff[worst], "worst_weight": worst,
+                         "nondeterministic_grads": dict(list(nondet.items())[:8]),
+                         "ok": resume_ok},
+              "ok": ok, "card": card})
+        if not ok:
+            raise SystemExit("trainer phase failed")
+        return counts, steps
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+
+
 def kernels_line(results, bwd_results, cln_results, op_results, per_forward, rollout_counts,
-                 step_counts, tail_forward, tail_counts, op_counts):
+                 step_counts, tail_forward, tail_counts, op_counts, general, f32_counts,
+                 odd_counts, trainer_counts, trainer_steps):
     """One entry per hand-written kernel. ``launches`` is the count from the
-    path that runs it: the train step (the first four), the fused-tail train
-    step (the tail's two), the op's forward + backward path (the separate-
-    q/k/v attention's two)."""
+    path that runs it: the train step (the first four; with the Trainer's
+    steps beside it), the fused-tail train step (the tail's two), the op's
+    forward + backward path (the separate-q/k/v attention's two), the fp32
+    ScOT-T train step (the general kernels, with the mlp_ratio-3, D = 24
+    step's count beside it)."""
     def entry(name, source, replaces, rows, shape_prefix, counts, **extra):
         row = next(r for r in rows if r["model"] == "B" and r["shape"].startswith(shape_prefix))
         b_rows = [r for r in rows if r["model"] == "B"]
@@ -1095,7 +1615,20 @@ def kernels_line(results, bwd_results, cln_results, op_results, per_forward, rol
 
     def main_path(name):
         return {"forward_launches": per_forward[name], "rollout_launches": rollout_counts[name],
-                "train_step_launches": step_counts[name]}
+                "train_step_launches": step_counts[name],
+                "trainer_launches_per_step": trainer_counts[name] / trainer_steps}
+
+    def general_entry(name, source, replaces, rows, prefix, **extra):
+        row = next(r for r in rows if r["model"] == "B-fp32" and r["shape"].startswith(prefix))
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces, **extra,
+                "launches": f32_counts[name], "max_abs_err": max(r["max_abs_err"] for r in rows),
+                "ms": row["kernel_ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                "device_ms": row["kernel_device_ms"],
+                "library_device_ms": row["library_device_ms"],
+                "shape": "ScOT-B fp32 b32 " + row["shape"],
+                "path": "ScOT-T fp32 train step (launches); D = 24, F = 3C bf16 step: "
+                        f"{odd_counts[name]}"}
 
     def tail_path(name):
         return {"fused_tail_forward_launches": tail_forward[name],
@@ -1127,6 +1660,17 @@ def kernels_line(results, bwd_results, cln_results, op_results, per_forward, rol
               cln_results["fwd"], "stage0", tail_counts, **tail_path("mlp_cln_fwd")),
         entry("mlp_cln_bwd", csrc + "mlp_cln_bwd.cu", "poseidon_tpu/ops/mlp.py:284",
               cln_results["bwd"], "stage0", tail_counts, **tail_path("mlp_cln_bwd")),
+        general_entry("window_attention_general_fwd", csrc + "window_attention_general.cu",
+                      "poseidon_tpu/ops/window_attention.py:131", general["attention_fwd"],
+                      "stage0_shifted", also_replaces="poseidon_tpu/ops/window_attention.py:126"),
+        general_entry("window_attention_general_bwd", csrc + "window_attention_general.cu",
+                      "poseidon_tpu/ops/window_attention.py:215", general["attention_bwd"],
+                      "stage0_shifted", also_replaces="poseidon_tpu/ops/window_attention.py:201"),
+        general_entry("mlp_general_fwd", csrc + "mlp_general.cu", "poseidon_tpu/ops/mlp.py:149",
+                      general["mlp_fwd"], "stage0", also_replaces="poseidon_tpu/ops/mlp.py:87"),
+        general_entry("mlp_general_bwd", csrc + "mlp_general.cu", "poseidon_tpu/ops/mlp.py:157",
+                      general["mlp_bwd"], "stage0",
+                      also_replaces="poseidon_tpu/ops/mlp.py:114, poseidon_tpu/ops/mlp.py:130"),
     ]}
 
 
@@ -1160,8 +1704,25 @@ def main() -> int:
     # ScOT-T (embed 48: D = 16 at every stage): forward and train step.
     t_model, *_ = phase_model(pt, wa_mod, mlp_op, attn_mod, card, size="T")
     phase_train(pt, wa_mod, mlp_op, t_model, card, size="T")
+    del t_model
+    # The general kernels: at their shapes, then ScOT-T in fp32 (every
+    # attention and MLP call on them) and ScOT-T with D = 24 and F = 3C.
+    general = phase_general_kernels(pt, wa_mod, mlp_op, attn_mod, bound_ms, card)
+    f32_model, *_ = phase_model(pt, wa_mod, mlp_op, attn_mod, card, size="T",
+                                dtype=torch.float32, tol=FP32_REL_TOL, name="model_T_fp32")
+    _, f32_counts, _ = phase_train(pt, wa_mod, mlp_op, f32_model, card, size="T",
+                                   tol=FP32_REL_TOL, name="train_T_fp32")
+    del f32_model
+    odd_model, *_ = phase_model(pt, wa_mod, mlp_op, attn_mod, card, size="T", overrides=ODD,
+                                name="model_T_odd")
+    _, odd_counts, _ = phase_train(pt, wa_mod, mlp_op, odd_model, card, size="T",
+                                   name="train_T_odd")
+    del odd_model
+    # The Trainer: this slice's main path.
+    trainer_counts, trainer_steps = phase_trainer(pt, wa_mod, mlp_op, card, step_ms)
     emit(kernels_line(results, bwd_results, cln_results, op_results, per_forward,
-                      rollout_counts, step_counts, tail_forward, tail_counts, op_counts))
+                      rollout_counts, step_counts, tail_forward, tail_counts, op_counts, general,
+                      f32_counts, odd_counts, trainer_counts, trainer_steps))
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

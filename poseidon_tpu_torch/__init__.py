@@ -2,13 +2,16 @@
 
 Importing this package imports ``torch`` only: no JAX, and nothing of the
 JAX package. The kernels (``ops/``) are built and loaded at first use.
+The data layer (``data/``) and the metrics are numpy and h5py; the Trainer
+(``training/``) trains, evaluates and predicts on one card.
 """
 
 from .config import MODEL_MAP, ScOTConfig, make_config
 from .hub import from_jax_params, from_pretrained
 from .models.scot import ScOT, apply_pixel_mask, build_model, scot_loss
-from .rollout import autoregressive_rollout
-from .training import build_optimizer, train_step
+from .data.registry import get_dataset
+from .metrics import ChannelGroupMetrics
+from .training import Trainer, TrainingArguments, autoregressive_rollout, build_optimizer, train_step
 
 __all__ = [
     "ScOTConfig",
@@ -23,4 +26,8 @@ __all__ = [
     "scot_loss",
     "build_optimizer",
     "train_step",
+    "Trainer",
+    "TrainingArguments",
+    "get_dataset",
+    "ChannelGroupMetrics",
 ]

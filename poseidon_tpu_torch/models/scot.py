@@ -132,12 +132,15 @@ class SwinBlock(nn.Module):
         kernel path with ``fused_block_tail``, conditioning and a lead time,
         no active hidden dropout, and where ``use_fused_tail`` takes the
         stage (the JAX package's rule, ``models/scot.py:204-209``, with the
-        port's gate in place of its TPU VMEM budget)."""
+        port's gate in place of its TPU VMEM budget: on the card, only the
+        widths and the dtype the tail's kernels take)."""
         cfg = self.config
+        fc = self.intermediate.dense
         return (cfg.attention_impl == "pallas" and cfg.fused_block_tail
                 and cfg.use_conditioning and time is not None
                 and (cfg.hidden_dropout_prob == 0.0 or not self.training)
-                and use_fused_tail(self.intermediate.dense.in_features, tokens))
+                and use_fused_tail(fc.in_features, tokens, fc.out_features, self.dtype,
+                                   time.device.type))
 
     def forward(self, x: torch.Tensor, time: Optional[torch.Tensor],
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:

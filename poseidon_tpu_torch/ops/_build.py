@@ -20,8 +20,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Sequence
 
-SOURCES = ("window_attention", "window_attention_bwd", "mlp", "mlp_bwd", "mlp_cln",
-           "mlp_cln_bwd")
+SOURCES = ("window_attention", "window_attention_bwd", "window_attention_general", "mlp",
+           "mlp_bwd", "mlp_cln", "mlp_cln_bwd", "mlp_general")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -8,9 +8,10 @@ with fp32 accumulation, exact (erf) GELU on the fp32 pre-activation, and
 ``cast`` rounding to x's dtype: the function of the TPU kernels
 ``poseidon_tpu/ops/mlp.py::_fwd_kernel_dm`` and ``::_fwd_kernel``, with their
 rounding points. Weights are in PyTorch Linear layout: ``w1`` (F, C), ``w2``
-(C, F), biases fp32. The kernels take C in ``KERNEL_WIDTHS`` and evaluate erf
-as the TPU kernels do (Abramowitz-Stegun 7.1.26, within 1.5e-7); the plain
-versions use ``torch.erf``.
+(C, F), biases fp32. The wgmma kernels take C in ``KERNEL_WIDTHS`` and
+evaluate erf as the TPU kernels do (Abramowitz-Stegun 7.1.26, within
+1.5e-7); the general kernels use ``erff`` (within 2 ulp); the plain versions
+use ``torch.erf``.
 
 The backward (:func:`mlp_bwd`) recomputes the hidden state, as the TPU
 kernels ``_bwd_kernel_dm``, ``_bwd_kernel_fused`` and ``_bwd_kernel_emit``
@@ -22,14 +23,19 @@ conditional LayerNorm and the residual of a Swin block to the MLP, the
 function of ``_fwd_kernel_dm_cln`` / ``_bwd_kernel_dm_cln``; see
 :func:`mlp_cln_plain`.
 
-A CPU tensor goes to the plain version. A CUDA tensor goes to the kernel
-(``csrc/mlp.cu``, ``csrc/mlp_bwd.cu``, ``csrc/mlp_cln.cu``,
-``csrc/mlp_cln_bwd.cu``) or raises.
+A CPU tensor goes to the plain version. A CUDA tensor goes to a kernel or
+raises: the Hopper kernels (``csrc/mlp.cu``, ``csrc/mlp_bwd.cu``,
+``csrc/mlp_cln.cu``, ``csrc/mlp_cln_bwd.cu``) for bf16 with C in
+``KERNEL_WIDTHS`` and F % 64 == 0, the general MLP kernels
+(``csrc/mlp_general.cu``, fp32 FMA, erff GELU) for fp32 operands and any
+other C <= 1024 and F <= 4096 (:func:`mlp_kernel_for`). The fused tail has
+only the Hopper kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -49,39 +55,61 @@ def mlp_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     return (g.float() @ w2.to(cdt).float().t() + b2.float()).to(cdt)
 
 
+GENERAL_MAX_C = 1024
+GENERAL_MAX_F = 4096
+
+
+def mlp_kernel_for(c: int, f: int, dtype: torch.dtype) -> str:
+    """Which MLP kernel a call on the card runs: ``"wgmma"`` (``csrc/mlp.cu``,
+    ``csrc/mlp_bwd.cu``) for bf16 operands with C in ``KERNEL_WIDTHS`` and
+    F % 64 == 0, else ``"general"`` (``csrc/mlp_general.cu``: fp32 FMA,
+    bf16 or fp32 operands, C <= 1024 and F <= 4096)."""
+    if dtype == torch.bfloat16 and c in KERNEL_WIDTHS and f % 64 == 0:
+        return "wgmma"
+    return "general"
+
+
 def _check(x2, w1, b1, w2, b2=None):
-    """Checks the kernels' operands (b2 is not an operand of the backward)."""
-    if x2.dtype == torch.float32:
-        raise NotImplementedError(
-            "mlp kernel takes bf16 operands; fp32 kernel operands are ROADMAP "
-            "queue 2 item 'fp32 operands in the kernels'")
+    """Checks the kernels' operands (b2 is not an operand of the backward).
+    Returns (M, C, F, the kernel that takes the call)."""
     m, c = x2.shape
     f = w1.shape[0]
     biases = (b1,) if b2 is None else (b1, b2)
-    if x2.dtype != torch.bfloat16 or w1.dtype != torch.bfloat16 or w2.dtype != torch.bfloat16:
-        raise TypeError("mlp kernel: x, w1 and w2 must be bf16")
+    if x2.dtype not in (torch.bfloat16, torch.float32) or w1.dtype != x2.dtype \
+            or w2.dtype != x2.dtype:
+        raise TypeError(f"mlp kernels: x, w1 and w2 must be bf16 or fp32 of one dtype, got "
+                        f"{x2.dtype}, {w1.dtype}, {w2.dtype}")
     if any(b.dtype != torch.float32 for b in biases):
-        raise TypeError("mlp kernel: b1 and b2 must be fp32")
-    if c not in KERNEL_WIDTHS or f % 64:
-        raise ValueError(f"mlp kernel takes C in {KERNEL_WIDTHS} and F % 64 == 0, "
+        raise TypeError("mlp kernels: b1 and b2 must be fp32")
+    if not (1 <= c <= GENERAL_MAX_C and 1 <= f <= GENERAL_MAX_F):
+        raise ValueError(f"mlp kernels take C <= {GENERAL_MAX_C} and F <= {GENERAL_MAX_F}, "
                          f"got C={c}, F={f}")
     if w1.shape != (f, c) or w2.shape != (c, f) or b1.shape != (f,) or \
             (b2 is not None and b2.shape != (c,)):
-        raise ValueError("mlp kernel: w1 (F, C), b1 (F,), w2 (C, F), b2 (C,) expected")
+        raise ValueError("mlp kernels: w1 (F, C), b1 (F,), w2 (C, F), b2 (C,) expected")
+    kernel = mlp_kernel_for(c, f, x2.dtype)
     for name, a in zip(("x", "w1", "w2", "b1", "b2"), (x2, w1, w2) + biases):
         if a.device != x2.device:
             raise ValueError(f"{name} is on {a.device}, x on {x2.device}")
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if a.data_ptr() % 16:
+        if kernel == "wgmma" and a.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    return m, c, f
+    return m, c, f, kernel
 
 
-def _check_dy(dy2, x2):
+def _check_tail_kernel(kernel: str, c: int, f: int, dtype: torch.dtype):
+    """The fused tail has only its Hopper kernels."""
+    if kernel != "wgmma":
+        raise ValueError(f"mlp_cln kernel takes bf16 with C in {KERNEL_WIDTHS} and F % 64 == 0, "
+                         f"got {dtype}, C={c}, F={f} (fp32 and other widths: ROADMAP queue 2; "
+                         f"use_fused_tail sends such blocks to the unfused branch)")
+
+
+def _check_dy(dy2, x2, kernel="wgmma"):
     """Checks a backward kernel's output cotangent against its input rows."""
     if dy2.shape != x2.shape or dy2.dtype != x2.dtype or dy2.device != x2.device \
-            or not dy2.is_contiguous() or dy2.data_ptr() % 16:
+            or not dy2.is_contiguous() or (kernel == "wgmma" and dy2.data_ptr() % 16):
         raise ValueError("dy must be contiguous, 16-byte aligned, and of x's shape, dtype "
                          "and device")
 
@@ -94,8 +122,19 @@ def _forward(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
         raise ValueError(f"mlp: unsupported device {x.device}")
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    m, c, f = _check(x2, w1, b1, w2, b2)
+    m, c, f, kernel = _check(x2, w1, b1, w2, b2)
     out = torch.empty((m, c), dtype=x.dtype, device=x.device)
+    if kernel == "general":
+        lib = _build.load("mlp_general", _GENERAL_SIGNATURES)
+        err = lib.mlp_general_fwd(x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                                  b2.data_ptr(), out.data_ptr(), m, c, f,
+                                  int(x.dtype == torch.float32),
+                                  torch.cuda.current_stream(x.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"mlp general kernel launch failed: "
+                               f"{_build.error_string(lib, err)}")
+        mlp.launches_general += 1
+        return out.reshape(*lead, c)
     lib = _build.load("mlp", _SIGNATURES)
     err = lib.mlp_fwd(x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
                       b2.data_ptr(), out.data_ptr(), m, c, f,
@@ -156,8 +195,10 @@ def mlp_bwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tenso
         raise ValueError(f"mlp_bwd: unsupported device {x.device}")
     x2 = x.reshape(-1, x.shape[-1])
     dy2 = dy.reshape(-1, dy.shape[-1])
-    m, c, f = _check(x2, w1, b1, w2)
-    _check_dy(dy2, x2)
+    m, c, f, kernel = _check(x2, w1, b1, w2)
+    _check_dy(dy2, x2, kernel)
+    if kernel == "general":
+        return _general_bwd(x2, w1, b1, w2, dy2, m, c, f, x.shape)
     n_out = 2 * f * c + f + c
     r = bwd_splits(m, c, f)
     dx = torch.empty_like(x2)
@@ -172,6 +213,39 @@ def mlp_bwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tenso
     mlp_bwd.launches += 1
     dw1, dw2, db1, db2 = grads.split([f * c, c * f, f, c])
     return dx.reshape(x.shape), dw1.view(f, c), db1, dw2.view(c, f), db2
+
+
+def general_bwd_splits(m: int, c: int, f: int) -> int:
+    """Row splits R of the general backward's weight-gradient CTAs: about
+    two such CTAs an SM over dW1 and dW2 together, at least 32 rows a split,
+    and the (R, 2 F C) fp32 partials kept within 64 MiB."""
+    tiles = 2 * -(-f // 64) * -(-c // 64)
+    r = -(-2 * _BWD_TARGET_CTAS // tiles)
+    return max(1, min(r, -(-m // 32), (64 << 20) // (8 * f * c)))
+
+
+def _general_bwd(x2, w1, b1, w2, dy2, m, c, f, x_shape):
+    """The general backward kernel's launch: (dx, dw1, db1, dw2, db2)."""
+    r = general_bwd_splits(m, c, f)
+    f32 = dict(dtype=torch.float32, device=x2.device)
+    dx = torch.empty_like(x2)
+    grads = torch.empty(2 * f * c + f + c, **f32)        # dw1 | dw2 | db1 | db2
+    dub = torch.empty((m, f), dtype=x2.dtype, device=x2.device)  # cast(du)
+    g = torch.empty_like(dub)                                     # cast(gelu(u))
+    partw = torch.empty((r, 2 * f * c), **f32)
+    partb = torch.empty((-(-m // 64), f + c), **f32)
+    lib = _build.load("mlp_general", _GENERAL_SIGNATURES)
+    err = lib.mlp_general_bwd(x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                              dy2.data_ptr(), dx.data_ptr(), grads.data_ptr(), dub.data_ptr(),
+                              g.data_ptr(), partw.data_ptr(), partb.data_ptr(), m, c, f, r,
+                              int(x2.dtype == torch.float32),
+                              torch.cuda.current_stream(x2.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"mlp_bwd general kernel launch failed: "
+                           f"{_build.error_string(lib, err)}")
+    mlp_bwd.launches_general += 1
+    dw1, dw2, db1, db2 = grads.split([f * c, c * f, f, c])
+    return dx.reshape(x_shape), dw1.view(f, c), db1, dw2.view(c, f), db2
 
 
 class MlpFn(torch.autograd.Function):
@@ -193,26 +267,38 @@ class MlpFn(torch.autograd.Function):
 def mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
         w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     """The fused MLP over the last axis of x (any leading shape), with its
-    backward. ``mlp.launches`` counts forward kernel launches,
-    ``mlp_bwd.launches`` backward ones."""
+    backward. ``mlp.launches`` counts forward launches of the wgmma kernel,
+    ``mlp_bwd.launches`` backward ones; their ``launches_general`` count the
+    general kernel's."""
     return MlpFn.apply(x, w1, b1, w2, b2)
 
 
 mlp.launches = 0
 mlp_bwd.launches = 0
+mlp.launches_general = 0
+mlp_bwd.launches_general = 0
 _BWD_TARGET_CTAS = 132
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # x, w1, b1, w2, b2, out, M, C, F, stream
 _SIGNATURES = {"mlp_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P), "mlp_fwd_info": (_I, _P)}
 # x, w1, b1, w2, dy, dx, grads, partials, M, C, F, R, stream
 _BWD_SIGNATURES = {"mlp_bwd": (_P,) * 8 + (_I,) * 4 + (_P,), "mlp_bwd_info": (_I, _P)}
+_GENERAL_SIGNATURES = {
+    # x, w1, b1, w2, b2, out, M, C, F, fp32, stream
+    "mlp_general_fwd": (_P,) * 6 + (_I,) * 4 + (_P,),
+    # x, w1, b1, w2, dy, dx, grads, dub, g, partw, partb, M, C, F, R, fp32, stream
+    "mlp_general_bwd": (_P,) * 11 + (_I,) * 5 + (_P,),
+    # kernel, fp32, int[3] out: registers, spill bytes, static shared-memory bytes
+    "mlp_general_info": (_I, _I, _P),
+}
 
 
 def kernel_info() -> dict:
     """Registers, local-memory (spill) bytes and dynamic shared-memory bytes
-    of every instantiation of the four MLP kernels (the tail backward's
-    prologue; its middle launch is the MLP backward's kernel), by width C
-    (builds and loads them)."""
+    of every instantiation of the four wgmma MLP kernels (the tail
+    backward's prologue; its middle launch is the MLP backward's kernel), by
+    width C, and of the general kernels' five, by operand type (static
+    shared memory; builds and loads them)."""
     out = {}
     for name, sigs, entry in (("mlp", _SIGNATURES, "mlp_fwd_info"),
                               ("mlp_bwd", _BWD_SIGNATURES, "mlp_bwd_info"),
@@ -226,16 +312,27 @@ def kernel_info() -> dict:
                 raise RuntimeError(f"{name} info failed: {err}")
             out[f"{name} C={c}"] = {"registers": vals[0], "spill_bytes": vals[1],
                                     "smem_bytes": vals[2]}
+    fn = _build.load("mlp_general", _GENERAL_SIGNATURES).mlp_general_info
+    for kernel, kname in enumerate(("fwd", "bwd_hidden", "bwd_dx", "bwd_dw", "bwd_reduce")):
+        for fp32 in (0, 1):
+            vals = (ctypes.c_int * 3)()
+            err = fn(kernel, fp32, ctypes.addressof(vals))
+            if err != 0:
+                raise RuntimeError(f"mlp_general info failed: {err}")
+            out[f"mlp_general {kname} {'fp32' if fp32 else 'bf16'}"] = {
+                "registers": vals[0], "spill_bytes": vals[1], "smem_bytes": vals[2]}
     return out
 
 
-def use_mlp_kernel(c: int, tokens_per_image: int) -> bool:
-    """The port's dispatch rule: the fused kernel for stages with at least
-    256 tokens per image and a width the kernel takes. At ScOT-T/S, ScOT-B
-    and ScOT-L on 128x128 inputs these are stages 0-1, where the JAX package
-    also runs its Pallas kernel; the narrow-token, wide stages 2-3 run as two
-    GEMMs."""
-    return tokens_per_image >= 256 and c in KERNEL_WIDTHS
+def use_mlp_kernel(c: int, tokens_per_image: int, f: Optional[int] = None) -> bool:
+    """The port's dispatch rule: a fused MLP kernel for stages with at least
+    256 tokens per image, at the widths the kernels take (C <= 1024, F <=
+    4096; F defaults to 4C). At ScOT-T/S, ScOT-B and ScOT-L on 128x128
+    inputs these are stages 0-1, where the JAX package also runs its Pallas
+    kernel; the narrow-token, wide stages 2-3 run as two GEMMs. Which kernel
+    runs is :func:`mlp_kernel_for`'s choice."""
+    f = 4 * c if f is None else f
+    return tokens_per_image >= 256 and c <= GENERAL_MAX_C and f <= GENERAL_MAX_F
 
 
 def fused_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
@@ -244,7 +341,7 @@ def fused_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     "pallas"``: the kernel where :func:`use_mlp_kernel` says so, else two
     GEMMs in x's dtype with the biases cast to it (the JAX package's XLA
     composition)."""
-    if use_mlp_kernel(x.shape[-1], x.shape[1]):
+    if use_mlp_kernel(x.shape[-1], x.shape[1], w1.shape[0]):
         return mlp(x, w1, b1, w2, b2)
     return dense(gelu_exact(dense(x, w1, b1)), w2, b2)
 
@@ -319,7 +416,8 @@ def _forward_cln(x, w1, b1, w2, b2, scale, shift, eps):
     if x.device.type != "cuda":
         raise ValueError(f"mlp_cln: unsupported device {x.device}")
     x2 = x.reshape(-1, x.shape[-1])
-    m, c, f = _check(x2, w1, b1, w2, b2)
+    m, c, f, kernel = _check(x2, w1, b1, w2, b2)
+    _check_tail_kernel(kernel, c, f, x.dtype)
     _check_tail(x, scale, shift)
     out = torch.empty_like(x2)
     lib = _build.load("mlp_cln", _CLN_SIGNATURES)
@@ -343,7 +441,8 @@ def mlp_cln_bwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.T
         raise ValueError(f"mlp_cln_bwd: unsupported device {x.device}")
     x2 = x.reshape(-1, x.shape[-1])
     dy2 = dy.reshape(-1, dy.shape[-1])
-    m, c, f = _check(x2, w1, b1, w2, b2)
+    m, c, f, kernel = _check(x2, w1, b1, w2, b2)
+    _check_tail_kernel(kernel, c, f, x.dtype)
     _check_tail(x, scale)
     _check_dy(dy2, x2)
     b = x.shape[0]
@@ -399,15 +498,23 @@ def mlp_cln(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tenso
     return MlpClnFn.apply(x, w1, b1, w2, b2, scale, shift, eps)
 
 
-def use_fused_tail(c: int, tokens_per_image: int) -> bool:
+def use_fused_tail(c: int, tokens_per_image: int, f: Optional[int] = None,
+                   dtype: torch.dtype = torch.bfloat16, device_type: str = "cuda") -> bool:
     """The port's gate of the fused block tail: the MLP kernel's rule
-    (:func:`use_mlp_kernel`) and whole 64-row tiles per image. At ScOT-T/S
-    and ScOT-B on 128x128 inputs this picks stages 0-1, the blocks where the
-    JAX package's TPU VMEM budget (``dm_eligible(..., cln=True)``) also takes
-    its kernel.
-    At ScOT-L that budget refuses every stage and this rule takes stages
-    0-1. Both paths compute the same function, so only the speed differs."""
-    return use_mlp_kernel(c, tokens_per_image) and tokens_per_image % 64 == 0
+    (:func:`use_mlp_kernel`), whole 64-row tiles per image, and, on the
+    card, operands the tail's Hopper kernels take (bf16, C in
+    ``KERNEL_WIDTHS``, F % 64 == 0; F defaults to 4C). On the CPU the tail's
+    plain version takes any operands, so only the first two apply there.
+    Any other block runs the unfused branch (the MLP kernel and the plain
+    norm), which computes the same function. At ScOT-T/S and ScOT-B on
+    128x128 inputs this picks stages 0-1, the blocks where the JAX
+    package's TPU VMEM budget (``dm_eligible(..., cln=True)``) also takes
+    its kernel. At ScOT-L that budget refuses every stage and this rule
+    takes stages 0-1. Both paths compute the same function, so only the
+    speed differs."""
+    f = 4 * c if f is None else f
+    return (use_mlp_kernel(c, tokens_per_image, f) and tokens_per_image % 64 == 0
+            and (device_type != "cuda" or mlp_kernel_for(c, f, dtype) == "wgmma"))
 
 
 mlp_cln.launches = 0

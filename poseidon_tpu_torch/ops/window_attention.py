@@ -33,8 +33,12 @@ name: the same attention on separate q, k and v with no q-bias (the function
 of ``_fwd_kernel`` / ``_bwd_kernel``), in its four layouts, with gradients to
 q, k, v, the position bias, the mask and the logit scales.
 
-A CPU tensor goes to the plain version. A CUDA tensor goes to the kernel
-(``csrc/window_attention.cu``, ``csrc/window_attention_bwd.cu``) or raises.
+A CPU tensor goes to the plain version. A CUDA tensor goes to a kernel or
+raises: the Hopper kernels (``csrc/window_attention.cu``,
+``csrc/window_attention_bwd.cu``) for bf16 with T <= 256 and D in {16, 32,
+64}, the general ones (``csrc/window_attention_general.cu``, fp32 FMA) for
+fp32 operands and any other T <= 1024 and D <= 128
+(:func:`attention_kernel_for`).
 """
 
 from __future__ import annotations
@@ -76,19 +80,34 @@ def window_attention_plain(qkv: torch.Tensor, qb: torch.Tensor, bm: torch.Tensor
     return attention_plain(q, k, v, bm, scale).reshape(n, t, c3 // 3)
 
 
-def _check_operands(bf16s, fp32s, n, t, heads, d, bm):
-    """Checks shared by both kernels' wrappers; ``bf16s`` and ``fp32s`` are
-    (name, tensor) pairs. Returns nW."""
-    for name, a in bf16s:
-        if a.dtype == torch.float32:
-            raise NotImplementedError(
-                "window_attention kernel takes bf16 operands; fp32 kernel operands "
-                "are ROADMAP queue 2 item 'fp32 operands in the kernels'")
-        if a.dtype != torch.bfloat16:
-            raise TypeError(f"window_attention kernel: {name} must be bf16, got {a.dtype}")
-    if not 1 <= t <= 256 or d not in (16, 32, 64):
-        raise ValueError(f"window_attention kernel takes 1 <= T <= 256 and "
-                         f"D in (16, 32, 64), got T={t}, D={d}")
+GENERAL_MAX_T = 1024  # windows up to 32x32
+GENERAL_MAX_D = 128
+
+
+def attention_kernel_for(dtype: torch.dtype, t: int, d: int) -> str:
+    """Which kernel a call on the card runs: ``"wgmma"`` (the Hopper
+    kernels, ``csrc/window_attention.cu`` and ``window_attention_bwd.cu``)
+    for bf16 operands with 1 <= T <= 256 and D in {16, 32, 64}, else
+    ``"general"`` (``csrc/window_attention_general.cu``: fp32 FMA, bf16 or
+    fp32 operands, 1 <= T <= 1024 and 1 <= D <= 128)."""
+    if dtype == torch.bfloat16 and 1 <= t <= 256 and d in (16, 32, 64):
+        return "wgmma"
+    return "general"
+
+
+def _check_operands(ops, fp32s, n, t, heads, d, bm):
+    """Checks shared by the kernels' wrappers; ``ops`` (the q/k/v operands,
+    one dtype) and ``fp32s`` are (name, tensor) pairs. Returns (nW, the
+    kernel that takes the call)."""
+    dtype = ops[0][1].dtype
+    for name, a in ops:
+        if a.dtype not in (torch.bfloat16, torch.float32) or a.dtype != dtype:
+            raise TypeError(f"window_attention kernels: {name} must be bf16 or fp32, of one "
+                            f"dtype with {ops[0][0]}, got {a.dtype}")
+    kernel = attention_kernel_for(dtype, t, d)
+    if not (1 <= t <= GENERAL_MAX_T and 1 <= d <= GENERAL_MAX_D):
+        raise ValueError(f"window_attention kernels take 1 <= T <= {GENERAL_MAX_T} and "
+                         f"1 <= D <= {GENERAL_MAX_D}, got T={t}, D={d}")
     nw = bm.shape[0]
     if bm.shape != (nw, heads, t, t) or n % nw:
         raise ValueError(f"bm must be (nW, H, T, T) with N % nW == 0, got "
@@ -96,15 +115,15 @@ def _check_operands(bf16s, fp32s, n, t, heads, d, bm):
     for name, a in fp32s:
         if a.dtype != torch.float32:
             raise TypeError(f"{name} must be fp32, got {a.dtype}")
-    first, dev = bf16s[0][0], bf16s[0][1].device
-    for name, a in bf16s + fp32s:
+    first, dev = ops[0][0], ops[0][1].device
+    for name, a in ops + fp32s:
         if a.device != dev:
             raise ValueError(f"{name} is on {a.device}, {first} on {dev}")
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if any(a.data_ptr() % 16 for _, a in bf16s):
-        raise ValueError(f"{', '.join(n for n, _ in bf16s)} must be 16-byte aligned")
-    return nw
+    if kernel == "wgmma" and any(a.data_ptr() % 16 for _, a in ops):
+        raise ValueError(f"{', '.join(n for n, _ in ops)} must be 16-byte aligned")
+    return nw, kernel
 
 
 def _check(qkv, qb, bm, scale, heads):
@@ -116,12 +135,12 @@ def _check(qkv, qb, bm, scale, heads):
         raise ValueError(f"C={c} is not a multiple of heads={heads}")
     if qb.shape != (c,) or scale.shape != (heads,):
         raise ValueError("qb must be (C,) and scale (H,)")
-    if qb.data_ptr() % 16:
-        raise ValueError("qb must be 16-byte aligned")
     d = c // heads
-    nw = _check_operands([("qkv", qkv)], [("qb", qb), ("bm", bm), ("scale", scale)],
-                         n, t, heads, d, bm)
-    return n, t, c, d, nw
+    nw, kernel = _check_operands([("qkv", qkv)], [("qb", qb), ("bm", bm), ("scale", scale)],
+                                 n, t, heads, d, bm)
+    if kernel == "wgmma" and qb.data_ptr() % 16:
+        raise ValueError("qb must be 16-byte aligned")
+    return n, t, c, d, nw, kernel
 
 
 def _forward(qkv: torch.Tensor, qb: torch.Tensor, bm: torch.Tensor,
@@ -130,8 +149,12 @@ def _forward(qkv: torch.Tensor, qb: torch.Tensor, bm: torch.Tensor,
         return window_attention_plain(qkv, qb, bm, scale, heads)
     if qkv.device.type != "cuda":
         raise ValueError(f"window_attention: unsupported device {qkv.device}")
-    n, t, c, d, nw = _check(qkv, qb, bm, scale, heads)
+    n, t, c, d, nw, kernel = _check(qkv, qb, bm, scale, heads)
     out = torch.empty((n, t, c), dtype=qkv.dtype, device=qkv.device)
+    if kernel == "general":
+        _general_fwd(_qkv_ptrs(qkv, c), 3 * c, qb, bm, scale, out, n, t, heads, d, nw)
+        window_attention.launches_general += 1
+        return out
     lib = _build.load("window_attention", _SIGNATURES)
     err = lib.window_attention_fwd(
         qkv.data_ptr(), qb.data_ptr(), bm.data_ptr(), scale.data_ptr(),
@@ -224,12 +247,17 @@ def window_attention_bwd(qkv: torch.Tensor, qb: torch.Tensor, bm: torch.Tensor,
         return window_attention_bwd_plain(qkv, qb, bm, scale, heads, do)
     if qkv.device.type != "cuda":
         raise ValueError(f"window_attention_bwd: unsupported device {qkv.device}")
-    n, t, c, d, nw = _check(qkv, qb, bm, scale, heads)
+    n, t, c, d, nw, kernel = _check(qkv, qb, bm, scale, heads)
     if do.shape != (n, t, c) or do.dtype != qkv.dtype or do.device != qkv.device:
         raise ValueError(f"do must be ({n}, {t}, {c}) {qkv.dtype} on {qkv.device}")
-    if not do.is_contiguous() or do.data_ptr() % 16:
+    if not do.is_contiguous() or (kernel == "wgmma" and do.data_ptr() % 16):
         raise ValueError("do must be contiguous and 16-byte aligned")
     dqkv = torch.empty_like(qkv)
+    if kernel == "general":
+        f32 = _general_bwd(_qkv_ptrs(qkv, c), _qkv_ptrs(dqkv, c), 3 * c, qb, bm, scale, do,
+                           n, t, heads, d, nw)
+        window_attention_bwd.launches_general += 1
+        return (dqkv,) + f32
     g, f32 = _bwd_scratch(n, t, heads, d, nw, qkv.device)
     lib = _build.load("window_attention_bwd", _BWD_SIGNATURES)
     err = lib.window_attention_bwd(
@@ -255,10 +283,56 @@ def _bwd_scratch(n, t, heads, d, nw, device):
                torch.empty((g * _bwd_cluster(t), nw, heads, d + 1), **f32))
 
 
+def _ptrs(*tensors):
+    return tuple(a.data_ptr() for a in tensors)
+
+
+def _qkv_ptrs(qkv: torch.Tensor, c: int):
+    """The q, k and v base pointers inside a packed (N, T, 3C) tensor."""
+    p, step = qkv.data_ptr(), c * qkv.element_size()
+    return p, p + step, p + 2 * step
+
+
+def _general_fwd(ptrs, ld, qb, bm, scale, out, n, t, heads, d, nw):
+    """Launch the general forward kernel on q/k/v at the data pointers
+    ``ptrs`` (row stride ``ld``) into ``out`` (N, T, C); ``qb`` may be None."""
+    lib = _build.load("window_attention_general", _GENERAL_SIGNATURES)
+    err = lib.window_attention_general_fwd(
+        *ptrs, None if qb is None else qb.data_ptr(), bm.data_ptr(), scale.data_ptr(),
+        out.data_ptr(), ld, heads * d, n, t, heads, d, nw, int(out.dtype == torch.float32),
+        torch.cuda.current_stream(out.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"window_attention general kernel launch failed: "
+                           f"{_build.error_string(lib, err)}")
+
+
+def _general_bwd(ptrs, dptrs, ld, qb, bm, scale, do, n, t, heads, d, nw):
+    """Launch the general backward kernels on q/k/v at ``ptrs`` with the
+    output cotangent ``do`` (N, T, C), writing dq/dk/dv at ``dptrs`` (both
+    with row stride ``ld``); returns (dqb, dbm, dscale) fp32."""
+    f32 = dict(dtype=torch.float32, device=do.device)
+    dqb, dscale = torch.empty(heads * d, **f32), torch.empty(heads, **f32)
+    dbm = torch.empty((nw, heads, t, t), **f32)
+    stats = torch.empty(n * heads * t * 3, **f32)              # row max, den, delta
+    part = torch.empty(n * heads * -(-t // 32) * (d + 1), **f32)  # per-CTA dqb | dscale
+    lib = _build.load("window_attention_general", _GENERAL_SIGNATURES)
+    err = lib.window_attention_general_bwd(
+        *ptrs, None if qb is None else qb.data_ptr(), bm.data_ptr(), scale.data_ptr(),
+        do.data_ptr(), *dptrs, dqb.data_ptr(), dbm.data_ptr(), dscale.data_ptr(),
+        stats.data_ptr(), part.data_ptr(), ld, ld, n, t, heads, d, nw,
+        int(do.dtype == torch.float32), torch.cuda.current_stream(do.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"window_attention_bwd general kernel launch failed: "
+                           f"{_build.error_string(lib, err)}")
+    return dqb, dbm, dscale
+
+
 def kernel_info() -> dict:
     """Registers, local-memory (spill) bytes and dynamic shared-memory
-    bytes of every instantiation of the two kernels, by padded window
-    NK = 64, 128, 256 and head width D (builds and loads them)."""
+    bytes of every instantiation of the two wgmma kernels, by padded window
+    NK = 64, 128, 256 and head width D, and of the general kernels' four
+    entries, by operand type and D rounded up to 32 (shared memory at that
+    D; builds and loads them)."""
     out = {}
     for name, sigs, entry in (("window_attention", _SIGNATURES, "window_attention_fwd_info"),
                               ("window_attention_bwd", _BWD_SIGNATURES,
@@ -272,6 +346,17 @@ def kernel_info() -> dict:
                     raise RuntimeError(f"{name} info failed: {err}")
                 out[f"{name} NK={nk} D={d}"] = {"registers": vals[0], "spill_bytes": vals[1],
                                                 "smem_bytes": vals[2]}
+    fn = _build.load("window_attention_general", _GENERAL_SIGNATURES).window_attention_general_info
+    for kernel, kname in enumerate(("fwd", "bwd_dq", "bwd_dkdv", "bwd_dbm")):
+        for fp32 in (0, 1):
+            for nv in (1, 2, 3, 4):
+                vals = (ctypes.c_int * 3)()
+                err = fn(kernel, fp32, nv, ctypes.addressof(vals))
+                if err != 0:
+                    raise RuntimeError(f"window_attention_general info failed: {err}")
+                out[f"window_attention_general {kname} {'fp32' if fp32 else 'bf16'} "
+                    f"D<={32 * nv}"] = {"registers": vals[0], "spill_bytes": vals[1],
+                                         "smem_bytes": vals[2]}
     return out
 
 
@@ -297,8 +382,9 @@ class WindowAttentionFn(torch.autograd.Function):
 def window_attention(qkv: torch.Tensor, qb: torch.Tensor, bm: torch.Tensor,
                      scale: torch.Tensor, heads: int) -> torch.Tensor:
     """Fused window cosine attention with its backward; see the module
-    docstring. ``window_attention.launches`` counts forward kernel launches,
-    ``window_attention_bwd.launches`` backward ones."""
+    docstring. ``window_attention.launches`` counts forward launches of the
+    wgmma kernel, ``window_attention_bwd.launches`` backward ones; their
+    ``launches_general`` count the general kernel's."""
     return WindowAttentionFn.apply(qkv, qb, bm, scale, heads)
 
 
@@ -316,9 +402,9 @@ def _check_sep(q, k, v, bm, scale):
     n, t, heads, d = q.shape
     if scale.shape != (heads,):
         raise ValueError("scale must be (H,)")
-    nw = _check_operands([("q", q), ("k", k), ("v", v)], [("bm", bm), ("scale", scale)],
-                         n, t, heads, d, bm)
-    return n, t, heads, d, nw
+    nw, kernel = _check_operands([("q", q), ("k", k), ("v", v)],
+                                 [("bm", bm), ("scale", scale)], n, t, heads, d, bm)
+    return n, t, heads, d, nw, kernel
 
 
 def _forward_sep(q, k, v, bm, scale):
@@ -326,8 +412,12 @@ def _forward_sep(q, k, v, bm, scale):
         return attention_plain(q, k, v, bm, scale)
     if q.device.type != "cuda":
         raise ValueError(f"fused_window_attention: unsupported device {q.device}")
-    n, t, heads, d, nw = _check_sep(q, k, v, bm, scale)
+    n, t, heads, d, nw, kernel = _check_sep(q, k, v, bm, scale)
     out = torch.empty_like(q)
+    if kernel == "general":
+        _general_fwd(_ptrs(q, k, v), heads * d, None, bm, scale, out, n, t, heads, d, nw)
+        fused_window_attention.launches_general += 1
+        return out
     lib = _build.load("window_attention", _SIGNATURES)
     err = lib.fused_window_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bm.data_ptr(), scale.data_ptr(),
@@ -348,11 +438,16 @@ def fused_window_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
         return attention_bwd_plain(q, k, v, bm, scale, do)
     if q.device.type != "cuda":
         raise ValueError(f"fused_window_attention_bwd: unsupported device {q.device}")
-    n, t, heads, d, nw = _check_sep(q, k, v, bm, scale)
+    n, t, heads, d, nw, kernel = _check_sep(q, k, v, bm, scale)
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device \
-            or not do.is_contiguous() or do.data_ptr() % 16:
+            or not do.is_contiguous() or (kernel == "wgmma" and do.data_ptr() % 16):
         raise ValueError("do must be contiguous, 16-byte aligned, and of q's shape and dtype")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if kernel == "general":
+        _, dbm, dscale = _general_bwd(_ptrs(q, k, v), _ptrs(dq, dk, dv), heads * d, None, bm,
+                                      scale, do, n, t, heads, d, nw)
+        fused_window_attention_bwd.launches_general += 1
+        return dq, dk, dv, dbm, dscale
     g, f32 = _bwd_scratch(n, t, heads, d, nw, q.device)
     lib = _build.load("window_attention_bwd", _BWD_SIGNATURES)
     err = lib.fused_window_attention_bwd(
@@ -456,6 +551,11 @@ window_attention.launches = 0
 window_attention_bwd.launches = 0
 fused_window_attention.launches = 0
 fused_window_attention_bwd.launches = 0
+# Launches of the general kernels (``attention_kernel_for(...) == "general"``).
+window_attention.launches_general = 0
+window_attention_bwd.launches_general = 0
+fused_window_attention.launches_general = 0
+fused_window_attention_bwd.launches_general = 0
 _SMS = 132  # the H100's SMs: the backward's groups fill them
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -475,4 +575,13 @@ _BWD_SIGNATURES = {
     "fused_window_attention_bwd": (_P,) * 14 + (_I,) * 6 + (_P,),
     # T, D, int[3] out: registers, spill bytes, dynamic shared-memory bytes
     "window_attention_bwd_info": (_I, _I, _P),
+}
+_GENERAL_SIGNATURES = {
+    # q, k, v, qb, bm, scale, out, ld, ldo, n_windows, T, heads, D, nW, fp32, stream
+    "window_attention_general_fwd": (_P,) * 7 + (_I,) * 8 + (_P,),
+    # q, k, v, qb, bm, scale, do, dq, dk, dv, dqb, dbm, dscale, stats, part, ld, ldd,
+    # n_windows, T, heads, D, nW, fp32, stream
+    "window_attention_general_bwd": (_P,) * 15 + (_I,) * 8 + (_P,),
+    # kernel, fp32, nv, int[3] out: registers, spill bytes, dynamic shared-memory bytes
+    "window_attention_general_info": (_I, _I, _I, _P),
 }

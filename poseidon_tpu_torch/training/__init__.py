@@ -1,8 +1,11 @@
 """Training: the grouped AdamW optimizer with its LR schedule, global-norm
-clipping, and the train step."""
+clipping, the train step, the rollouts and the Trainer."""
 
+from .arguments import TrainingArguments
 from .optimizer import build_optimizer, clip_by_global_norm, label_params, make_lr_schedule
-from .trainer import train_step
+from .rollout import autoregressive_rollout, autoregressive_rollout_stateful, rollout_loss
+from .trainer import PredictionOutput, Trainer, train_step
 
-__all__ = ["build_optimizer", "clip_by_global_norm", "label_params", "make_lr_schedule",
-           "train_step"]
+__all__ = ["TrainingArguments", "build_optimizer", "clip_by_global_norm", "label_params",
+           "make_lr_schedule", "autoregressive_rollout", "autoregressive_rollout_stateful",
+           "rollout_loss", "PredictionOutput", "Trainer", "train_step"]

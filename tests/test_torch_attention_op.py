@@ -146,21 +146,27 @@ def test_cpu_tensor_takes_plain_version(monkeypatch):
 
 
 def test_wrapper_checks():
+    """bf16 with T <= 256 and D in {16, 32, 64} goes to the wgmma kernel;
+    fp32, and any other T <= 1024 and D <= 128, to the general kernel; past
+    those limits the wrapper raises."""
     qkv, qb, bias, mask, scale = [torch.from_numpy(a) for a in make(2, 2, 16, 32, 1)]
     bm = bias[None] + mask[:, None]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        wa._check(qkv, qb, bm, scale, 2)
+    assert wa._check(qkv, qb, bm, scale, 2)[-1] == "general"
     q16 = qkv.to(torch.bfloat16)
-    wa._check(q16, qb, bm, scale, 2)
-    # D = 16 and any T up to 256 go to the kernel; T > 256 and other D raise.
-    wa._check(q16[..., :96].contiguous(), qb[:32], bm, scale, 2)
+    assert wa._check(q16, qb, bm, scale, 2)[-1] == "wgmma"
+    assert wa._check(q16[..., :96].contiguous(), qb[:32], bm, scale, 2)[-1] == "wgmma"
     qkv49, qb49, bias49, mask49, scale49 = [torch.from_numpy(a) for a in make(2, 2, 49, 32, 1)]
-    wa._check(qkv49.to(torch.bfloat16), qb49, bias49[None] + mask49[:, None], scale49, 2)
+    assert wa._check(qkv49.to(torch.bfloat16), qb49, bias49[None] + mask49[:, None], scale49,
+                     2)[-1] == "wgmma"
     big = torch.zeros(2, 257, 3 * 64, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="T <= 256"):
-        wa._check(big, qb, torch.zeros(1, 2, 257, 257), scale, 2)
-    with pytest.raises(ValueError, match="D in"):
-        wa._check(q16[..., :48].contiguous(), qb[:16], bm, scale, 2)
+    assert wa._check(big, qb, torch.zeros(1, 2, 257, 257), scale, 2)[-1] == "general"
+    assert wa._check(q16[..., :48].contiguous(), qb[:16], bm, scale, 2)[-1] == "general"
+    with pytest.raises(ValueError, match="T <= 1024"):
+        wa._check(torch.zeros(1, 1025, 3 * 64, dtype=torch.bfloat16), qb,
+                  torch.zeros(1, 2, 1025, 1025), scale, 2)
+    with pytest.raises(ValueError, match="D <= 128"):
+        wa._check(torch.zeros(2, 16, 3 * 272, dtype=torch.bfloat16), torch.zeros(272), bm,
+                  scale, 2)
     with pytest.raises(ValueError, match="bm"):
         wa._check(q16, qb, bm[:, :1], scale, 2)
     with pytest.raises(ValueError, match="contiguous"):

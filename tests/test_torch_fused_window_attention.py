@@ -132,18 +132,20 @@ def test_wrapper_checks():
     q, k, v, _, bias, mask, scale = [torch.from_numpy(a) for a in make(16, 2, 1)]
     q4 = q.transpose(1, 2).contiguous()
     bm = (bias[None] + mask[:, None]).contiguous()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        wa._check_sep(q4, q4, q4, bm, scale)
+    # fp32 goes to the general kernel, bf16 with any T up to 256 and D in
+    # {16, 32, 64} to the wgmma kernel, other D to the general kernel.
+    assert wa._check_sep(q4, q4, q4, bm, scale)[-1] == "general"
     qb = q4.to(torch.bfloat16)
-    wa._check_sep(qb, qb, qb, bm, scale)
-    # Any T up to 256 and D = 16 go to the kernel; other D raise.
-    wa._check_sep(qb[:, :8].contiguous(), qb[:, :8].contiguous(), qb[:, :8].contiguous(),
-                  bm[..., :8, :8].contiguous(), scale)
+    assert wa._check_sep(qb, qb, qb, bm, scale)[-1] == "wgmma"
+    assert wa._check_sep(qb[:, :8].contiguous(), qb[:, :8].contiguous(),
+                         qb[:, :8].contiguous(), bm[..., :8, :8].contiguous(),
+                         scale)[-1] == "wgmma"
     q16 = qb[..., :16].contiguous()
-    wa._check_sep(q16, q16, q16, bm, scale)
-    with pytest.raises(ValueError, match="D in"):
-        q8 = qb[..., :8].contiguous()
-        wa._check_sep(q8, q8, q8, bm, scale)
+    assert wa._check_sep(q16, q16, q16, bm, scale)[-1] == "wgmma"
+    q8 = qb[..., :8].contiguous()
+    assert wa._check_sep(q8, q8, q8, bm, scale)[-1] == "general"
+    with pytest.raises(TypeError, match="bf16 or fp32"):
+        wa._check_sep(q4.double(), q4.double(), q4.double(), bm, scale)
     with pytest.raises(ValueError, match="one shape"):
         wa._check_sep(qb, qb[:1], qb, bm, scale)
     with pytest.raises(ValueError, match="contiguous"):

@@ -46,8 +46,12 @@ def test_imports_with_jax_blocked():
             "    sys.modules[m] = None\n"
             "import poseidon_tpu_torch, poseidon_tpu_torch.hub, poseidon_tpu_torch.ops\n"
             "import poseidon_tpu_torch.ops.mlp, poseidon_tpu_torch.ops._build\n"
-            "import poseidon_tpu_torch.ops.window_attention, poseidon_tpu_torch.rollout\n"
+            "import poseidon_tpu_torch.ops.window_attention, poseidon_tpu_torch.training.rollout\n"
             "import poseidon_tpu_torch.training.optimizer, poseidon_tpu_torch.training.trainer\n"
+            "import poseidon_tpu_torch.metrics, poseidon_tpu_torch.parallel.host\n"
+            "import poseidon_tpu_torch.data.registry, poseidon_tpu_torch.data.loader\n"
+            "import poseidon_tpu_torch.data.fluids, poseidon_tpu_torch.data.elliptic\n"
+            "import poseidon_tpu_torch.data.wave, poseidon_tpu_torch.data.reaction_diffusion\n"
             "assert not any(m.split('.')[0] in ('jax', 'flax') and sys.modules[m] is not None\n"
             "               for m in sys.modules)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))

@@ -6,7 +6,10 @@ position-bias, q-bias and logit-scale gradients) are held by relative L2
 sum near zero. Each backward kernel also gives the same bits on two calls
 (no atomics), and each autograd Function's backward agrees with autograd of
 its plain forward within relative L2 5e-2 per gradient (the two round to
-bf16 at different points). They need a CUDA card and skip without one. This file imports neither JAX
+bf16 at different points). The general kernels (fp32 operands and the
+shapes the wgmma kernels refuse) are held to the fp32 plain versions by
+relative L2 <= 1e-4 (TF32 off; the sum order is the only difference) and in
+bf16 as above. They need a CUDA card and skip without one. This file imports neither JAX
 nor the JAX package, so it runs on a machine without them:
 
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda --noconftest -q
@@ -170,12 +173,18 @@ def test_mlp_function_matches_autograd_of_plain(m, c):
 
 
 @pytest.mark.cuda
-def test_fp32_on_card_raises():
+def test_fp32_on_card_takes_general_kernel():
     _needs_card()
-    x = torch.randn(64, 96, device="cuda")
-    w1, w2 = torch.randn(384, 96, device="cuda"), torch.randn(96, 384, device="cuda")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mlp_op.mlp(x, w1, torch.zeros(384, device="cuda"), w2, torch.zeros(96, device="cuda"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(9)
+    x = torch.randn(64, 96, generator=g).cuda()
+    w1 = (torch.randn(384, 96, generator=g) / 96 ** 0.5).cuda()
+    w2 = (torch.randn(96, 384, generator=g) / 384 ** 0.5).cuda()
+    b1, b2 = torch.zeros(384, device="cuda"), torch.zeros(96, device="cuda")
+    before = (mlp_op.mlp.launches, mlp_op.mlp.launches_general)
+    out = mlp_op.mlp(x, w1, b1, w2, b2)
+    assert (mlp_op.mlp.launches, mlp_op.mlp.launches_general) == (before[0], before[1] + 1)
+    assert _rel(out, mlp_op.mlp_plain(x, w1, b1, w2, b2)) <= FP32_TOL
 
 
 # (B, L, C): ScOT-B stage 0 and 1 blocks (C = 96 at L = 1024, 192 at 256),
@@ -301,10 +310,126 @@ def test_fused_window_attention_op_layouts_match_plain(layout):
 
 
 @pytest.mark.cuda
-def test_fused_window_attention_fp32_on_card_raises():
+def test_fused_window_attention_fp32_on_card_takes_general_kernel():
     _needs_card()
-    q = torch.randn(2, 16, 2, 32, device="cuda")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        wa.fused_window_attention(q, q, q, torch.zeros(2, 16, 16, device="cuda"),
-                                  torch.zeros(1, 16, 16, device="cuda"),
-                                  torch.ones(2, device="cuda"), layout="nthd")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(10)
+    q, k, v = (torch.randn(2, 16, 2, 32, generator=g).cuda() for _ in range(3))
+    bias = (16 * torch.sigmoid(torch.randn(2, 16, 16, generator=g))).cuda()
+    mask, scale = torch.zeros(1, 16, 16, device="cuda"), torch.full((2,), 10.0, device="cuda")
+    before = wa.fused_window_attention.launches_general
+    out = wa.fused_window_attention(q, k, v, bias, mask, scale, layout="nthd")
+    assert wa.fused_window_attention.launches_general == before + 1
+    ref = wa.attention_plain(q, k, v, (bias[None] + mask[:, None]).contiguous(), scale)
+    assert _rel(out, ref) <= FP32_TOL
+
+
+# The general kernels (csrc/window_attention_general.cu, csrc/mlp_general.cu):
+# fp32 operands against the fp32 plain versions (TF32 off) by relative L2
+# <= 1e-4, the sum order being the only difference; bf16 operands at the
+# wgmma kernels' tolerances. (T, H, D, shifted, dtype): ScOT-B and ScOT-T
+# stage shapes in fp32, head width 24 (ScOT-T with heads (2, 4, 8, 16)),
+# windows 24x24 and 32x32, and widths 1-128.
+FP32_TOL = 1e-4
+GENERAL_ATTN = [(256, 3, 32, True, "fp32"), (64, 12, 32, False, "fp32"),
+                (16, 24, 32, True, "fp32"), (256, 3, 16, True, "fp32"),
+                (256, 2, 24, True, "bf16"), (256, 2, 24, False, "fp32"),
+                (576, 2, 32, True, "bf16"), (576, 2, 32, False, "fp32"),
+                (49, 3, 40, False, "bf16"), (1024, 1, 8, False, "fp32"),
+                (64, 1, 128, True, "fp32"), (16, 2, 1, False, "fp32"), (9, 2, 100, False, "bf16")]
+
+
+def _general_check(out, ref, dtype, sums=False):
+    torch.cuda.synchronize()
+    if dtype == "fp32":
+        # Relative L2, plus 1e-6 absolute for a sum whose terms cancel to
+        # round-off (dscale at D = 1, where qn = +-1 and the normalisation
+        # passes no gradient): there both sides are fp32 noise near 1e-7.
+        err = float((out.float() - ref.float()).norm())
+        assert out.dtype == ref.dtype and err <= FP32_TOL * float(ref.norm()) + 1e-6, err
+    elif sums:
+        assert _rel(out, ref) <= SUM_TOL
+    else:
+        _close(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,h,d,shifted,dtype", GENERAL_ATTN)
+def test_general_attention_kernels_match_plain(t, h, d, shifted, dtype):
+    _needs_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    qkv, qb, bm, scale, do = _attention_inputs(t, h, d, shifted, 11)
+    if dtype == "fp32":
+        qkv, do = qkv.float(), do.float()
+    assert wa.attention_kernel_for(qkv.dtype, t, d) == "general"
+    counts = (wa.window_attention.launches, wa.window_attention.launches_general,
+              wa.window_attention_bwd.launches_general)
+    out = wa.window_attention(qkv, qb, bm, scale, h)
+    _general_check(out, wa.window_attention_plain(qkv, qb, bm, scale, h), dtype)
+    grads = wa.window_attention_bwd(qkv, qb, bm, scale, h, do)
+    assert (wa.window_attention.launches, wa.window_attention.launches_general,
+            wa.window_attention_bwd.launches_general) == (counts[0], counts[1] + 1, counts[2] + 1)
+    ref = wa.window_attention_bwd_plain(qkv, qb, bm, scale, h, do)
+    _general_check(grads[0], ref[0], dtype)
+    for a, b in zip(grads[1:], ref[1:]):
+        assert a.shape == b.shape and a.dtype == torch.float32
+        _general_check(a, b, dtype, sums=True)
+    again = wa.window_attention_bwd(qkv, qb, bm, scale, h, do)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(grads, again)), "not bit-identical"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,h,d,shifted,dtype", GENERAL_ATTN[:4] + GENERAL_ATTN[6:8])
+def test_general_separate_qkv_kernels_match_plain(t, h, d, shifted, dtype):
+    _needs_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    qkv, _, bm, scale, do = _attention_inputs(t, h, d, shifted, 12)
+    if dtype == "fp32":
+        qkv, do = qkv.float(), do.float()
+    q, k, v = _separate(qkv, h)
+    do = do.view(q.shape)
+    before = (wa.fused_window_attention.launches_general,
+              wa.fused_window_attention_bwd.launches_general)
+    out = wa._forward_sep(q, k, v, bm, scale)
+    _general_check(out, wa.attention_plain(q, k, v, bm, scale), dtype)
+    grads = wa.fused_window_attention_bwd(q, k, v, bm, scale, do)
+    assert (wa.fused_window_attention.launches_general,
+            wa.fused_window_attention_bwd.launches_general) == (before[0] + 1, before[1] + 1)
+    ref = wa.attention_bwd_plain(q, k, v, bm, scale, do)
+    for a, r in zip(grads[:3], ref[:3]):
+        _general_check(a, r, dtype)
+    for a, r in zip(grads[3:], ref[3:]):
+        _general_check(a, r, dtype, sums=True)
+
+
+# (M, C, F, dtype): ScOT-B and ScOT-T stage 0-1 widths in fp32, ScOT-T's
+# mlp_ratio=3 widths in bf16 (F = 144, 288), and odd and largest widths.
+GENERAL_MLP = [(4096, 96, 384, "fp32"), (4096, 48, 192, "fp32"), (2048, 48, 144, "bf16"),
+               (1000, 96, 288, "bf16"), (777, 64, 200, "fp32"), (300, 1024, 4096, "fp32"),
+               (100, 17, 33, "bf16")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,c,f,dtype", GENERAL_MLP)
+def test_general_mlp_kernels_match_plain(m, c, f, dtype):
+    _needs_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, w1, b1, w2, b2, dy = _mlp_inputs(m, c, 13, f)
+    if dtype == "fp32":
+        x, w1, w2, dy = x.float(), w1.float(), w2.float(), dy.float()
+    assert mlp_op.mlp_kernel_for(c, f, x.dtype) == "general"
+    before = (mlp_op.mlp.launches_general, mlp_op.mlp_bwd.launches_general)
+    out = mlp_op.mlp(x, w1, b1, w2, b2)
+    _general_check(out, mlp_op.mlp_plain(x, w1, b1, w2, b2), dtype)
+    grads = mlp_op.mlp_bwd(x, w1, b1, w2, dy)
+    assert (mlp_op.mlp.launches_general, mlp_op.mlp_bwd.launches_general) == \
+        (before[0] + 1, before[1] + 1)
+    ref = mlp_op.mlp_bwd_plain(x, w1, b1, w2, dy)
+    _general_check(grads[0], ref[0], dtype)
+    for a, b in zip(grads[1:], ref[1:]):
+        assert a.shape == b.shape and a.dtype == torch.float32
+        _general_check(a, b, dtype, sums=True)
+    again = mlp_op.mlp_bwd(x, w1, b1, w2, dy)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(grads, again)), "not bit-identical"

@@ -133,15 +133,22 @@ def test_cpu_tensor_takes_plain_version(monkeypatch):
 
 
 def test_wrapper_checks():
+    """fp32 operands, and bf16 widths outside the wgmma kernel's, go to the
+    general kernel; past its limits the wrapper raises."""
     x, w1, b1, w2, b2 = [torch.from_numpy(np.ascontiguousarray(a)) for a in make(8, 96, 384)]
     w1, w2 = w1.t().contiguous(), w2.t().contiguous()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mlp_op._check(x, w1, b1, w2, b2)
+    assert mlp_op._check(x, w1, b1, w2, b2)[3] == "general"
     xb, w1b, w2b = x.bfloat16(), w1.bfloat16(), w2.bfloat16()
-    mlp_op._check(xb, w1b, b1, w2b, b2)
-    with pytest.raises(ValueError, match="C in"):
-        mlp_op._check(xb[:, :64].contiguous(), w1b[:, :64].contiguous(), b1,
-                      w2b[:64].contiguous(), b2[:64].contiguous())
+    assert mlp_op._check(xb, w1b, b1, w2b, b2)[3] == "wgmma"
+    assert mlp_op._check(xb[:, :64].contiguous(), w1b[:, :64].contiguous(), b1,
+                         w2b[:64].contiguous(), b2[:64].contiguous())[3] == "general"
+    assert mlp_op._check(xb, w1b[:144].contiguous(), b1[:144], w2b[:, :144].contiguous(),
+                         b2)[3] == "general"
+    with pytest.raises(ValueError, match="C <= 1024"):
+        mlp_op._check(torch.zeros(8, 1040), torch.zeros(16, 1040), torch.zeros(16),
+                      torch.zeros(1040, 16), torch.zeros(1040))
+    with pytest.raises(TypeError, match="bf16 or fp32"):
+        mlp_op._check(x.double(), w1.double(), b1, w2.double(), b2)
     with pytest.raises(TypeError, match="fp32"):
         mlp_op._check(xb, w1b, b1.bfloat16(), w2b, b2)
     with pytest.raises(ValueError, match="contiguous"):
