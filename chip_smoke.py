@@ -62,25 +62,32 @@ Phases, one JSON line each (any failure ends the run with a non-zero exit):
    ("model_T", "train_T"), launches one attention kernel per block and the
    MLP kernel at stages 0-1 (C = 48 and 96): 32/16 per forward, 32/32/16/16
    per step;
-14. general kernels ("general_kernel"): the fp32-FMA attention and MLP
-   kernels against their plain versions, forward and backward (two backward
-   calls bit-identical), at every ScOT-B attention and MLP shape in fp32,
+14. general kernels ("general_kernel"): the general attention kernels
+   (wgmma; fp32 operands as 3xTF32) and the fp32-FMA MLP kernels against
+   their plain versions, forward and backward (two backward calls
+   bit-identical), at every ScOT-B attention and MLP shape in fp32,
    ScOT-T's with heads (2, 4, 8, 16) (D = 24) and mlp_ratio 3 (F = 144,
    288) in bf16, ScOT-T's MLP in fp32 and a 24x24 window (T = 576) in bf16
    and fp32; fp32 held by relative L2 <= 1e-4, bf16 as the wgmma phases;
-   times, library times and bounds as in 2 and 6 (fp32 at the fp32 FMA
-   rate);
+   times, library times and bounds as in 2 and 6 (fp32 attention at three
+   tf32 products a product on the tensor cores, the fp32 MLP at the fp32
+   FMA rate);
 15. ScOT-T in fp32 ("model_T_fp32", "train_T_fp32"; kernel path vs plain
    path relative L2 <= 1e-4, forward and gradients; every attention and MLP
    call on the general kernels: 32/16 per forward) and ScOT-T with heads
    (2, 4, 8, 16) and mlp_ratio 3 in bf16 ("model_T_odd", "train_T_odd"; the
    bf16 gates of 3 and 7; the general kernels again);
-16. trainer: the port's Trainer on a synthetic CE-Gauss file (see
+16. ScOT-B in fp32, the inference CLI's compute dtype ("model_B_fp32",
+   "train_B_fp32", each with a profile): full width and depth, kernel path
+   vs plain path relative L2 <= 1e-4, 64 general attention launches a
+   forward and 64 / 64 a step; wall ms, device busy ms, idle share and the
+   general attention kernels' device ms of one forward and one step;
+17. trainer: the port's Trainer on a synthetic CE-Gauss file (see
    ``phase_trainer``): ScOT-B train with mid-epoch checkpoints, evaluate,
    predict with two AR steps, and a resumed run held to the uninterrupted
    one bit for bit; steps/s beside the bare step, the loader's time, the
    device idle share, launches per step (64/64/32/32);
-17. the kernels line; 18. the device line, last.
+18. the kernels line; 19. the device line, last.
 
 Exits non-zero without printing results when CUDA is absent.
 """
@@ -110,7 +117,14 @@ GRAD_REL_TOL = 5e-2   # relative L2 of the whole gradient, kernel path vs plain 
 TRAIN_STEPS = 10
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; phase lines carry the seconds since the script began
+    ("elapsed_s"), so that a run shows where its time goes."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": round(time.perf_counter() - _T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -300,13 +314,13 @@ def attention_library_bwd(q, k, v, bm, scale, do):
 def attention_bwd_bound(n, t, heads, d, nw, bound_ms, es=2):
     """Scores once (the probabilities are not stored), dp, dv, dq, dk: 10 T^2 D
     FLOPs a pair; qkv, do, bm, qb and scale read once, dqkv, dbm, dqb and
-    dscale written once. ``es``: bytes an operand (4: fp32, at the fp32 FMA
-    rate)."""
+    dscale written once. ``es``: bytes an operand (4: fp32, whose products
+    the general kernel issues as three tf32 ones, at the dense TF32 rate)."""
     c = heads * d
     flops = 10.0 * n * heads * t * t * d
     nbytes = (2 * n * t * 3 * c * es + n * t * c * es + 2 * nw * heads * t * t * 4
               + 2 * (c + heads) * 4)
-    return bound_ms(flops, nbytes, fp32=es == 4)
+    return bound_ms(flops, nbytes, tf32x3=es == 4)
 
 
 def mlp_bwd_bound(m, c, f, bound_ms, es=2):
@@ -360,7 +374,7 @@ def attention_bound(n, t, heads, d, nw, bound_ms, es=2):
     c = heads * d
     flops = 4.0 * n * heads * t * t * d
     nbytes = n * t * 3 * c * es + c * 4 + nw * heads * t * t * 4 + heads * 4 + n * t * c * es
-    return bound_ms(flops, nbytes, fp32=es == 4)
+    return bound_ms(flops, nbytes, tf32x3=es == 4)
 
 
 def mlp_case(m, c, f, gen, dtype=torch.bfloat16):
@@ -834,7 +848,8 @@ def phase_general_kernels(pt, wa, mlp_op, attn_mod, bound_ms, card):
     backward, two backward calls compared bit for bit, kernel (events and
     device time), plain and library times (SDPA, or F.linear / F.gelu /
     F.linear, in the operands' dtype, TF32 off), and the bound (fp32
-    operands at the fp32 FMA rate)."""
+    attention at three tf32 products a product on the tensor cores, the
+    fp32 MLP at the fp32 FMA rate)."""
     gen = torch.Generator().manual_seed(11)
     results = {"attention_fwd": [], "attention_bwd": [], "mlp_fwd": [], "mlp_bwd": []}
 
@@ -1269,6 +1284,10 @@ def device_time_profile(fn, wall_ref_ms):
         name = e.key.lower()
         if any(k in name for k in ("window_attention_fwd_kernel", "attn_bwd_")):
             g = "port attention kernels"
+        elif "attn_general_" in name:
+            g = "port general attention kernels"
+        elif "mlp_general_" in name:
+            g = "port general MLP kernels"
         elif any(k in name for k in ("mlp_fwd_kernel", "mlp_bwd_", "mlp_cln_")):
             g = "port MLP kernels"
         elif "multi_tensor_apply" in name:
@@ -1296,9 +1315,54 @@ def phase_train_profile(step, step_ms, card, fused_tail=False):
           "train_step_ms": step_ms, **device_time_profile(step, step_ms), "card": card})
 
 
+GENERAL_ATTN_GROUP = "port general attention kernels"
+
+
+def phase_fp32_b(pt, wa, mlp_op, attn_mod, card):
+    """ScOT-B b32 in fp32, the compute dtype of the inference CLI and the
+    default of ``build_model`` and ``from_pretrained``: every attention call
+    on the general kernels (64 a forward, 64 / 64 a step) and every MLP call
+    on the general MLP kernels. The forward (phase "model_B_fp32") and the
+    train step ("train_B_fp32") against the plain path on the same weights
+    (relative L2 <= FP32_REL_TOL), then one profiled forward and step:
+    device busy, idle share, and the general attention kernels' device
+    time."""
+    model, x, t, fwd_counts, fwd_ms = phase_model(
+        pt, wa, mlp_op, attn_mod, card, size="B", dtype=torch.float32, tol=FP32_REL_TOL,
+        name="model_B_fp32")
+
+    def forward():
+        with torch.no_grad():
+            model(x, t)
+
+    prof = device_time_profile(forward, fwd_ms)
+    attn = prof["busy_ms_by_group"].get(GENERAL_ATTN_GROUP, 0.0)
+    ok = fwd_counts["window_attention_general_fwd"] == 64 and attn > 0
+    emit({"phase": "model_B_fp32_profile", "what": "one ScOT-B fp32 b32 forward, kernel path",
+          "forward_ms": fwd_ms, "general_attention_device_ms": attn,
+          "general_attention_launches": fwd_counts["window_attention_general_fwd"], **prof,
+          "ok": ok, "card": card})
+    if not ok:
+        raise SystemExit("model_B_fp32_profile phase failed")
+    step, step_counts, step_ms = phase_train(pt, wa, mlp_op, model, card, size="B",
+                                             tol=FP32_REL_TOL, name="train_B_fp32")
+    prof = device_time_profile(step, step_ms)
+    attn = prof["busy_ms_by_group"].get(GENERAL_ATTN_GROUP, 0.0)
+    got = (step_counts["window_attention_general_fwd"],
+           step_counts["window_attention_general_bwd"])
+    ok = got == (64, 64) and attn > 0
+    emit({"phase": "train_B_fp32_profile", "what": "one ScOT-B fp32 b32 train step, kernel path",
+          "train_step_ms": step_ms, "general_attention_device_ms": attn,
+          "general_attention_launches_fwd_bwd": list(got), **prof, "ok": ok, "card": card})
+    if not ok:
+        raise SystemExit("train_B_fp32_profile phase failed")
+    del model, step
+    return step_counts
+
+
 def phase_tail_vs_unfused(model, tail_model, x, t, step, tail_step, card):
     """The unfused and the fused-tail ScOT-B b32 forward and train step in
-    turns (unfused, fused, fused, unfused), the median of ten timed calls
+    turns (unfused, fused, fused, unfused), the median of five timed calls
     each."""
     def forward(m):
         def fn():
@@ -1309,7 +1373,7 @@ def phase_tail_vs_unfused(model, tail_model, x, t, step, tail_step, card):
     out = {"phase": "fused_tail_vs_unfused", "card": card}
     for what, a, b in (("forward", forward(model.eval()), forward(tail_model.eval())),
                        ("train_step", step, tail_step)):
-        times = [host_ms(fn, iters=10) for fn in (a, b, b, a)]
+        times = [host_ms(fn, iters=5) for fn in (a, b, b, a)]
         unfused, fused = (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
         out[what] = {"unfused_ms": [times[0], times[3]], "fused_tail_ms": [times[1], times[2]],
                      "unfused_samples_per_s": BATCH / (unfused / 1e3),
@@ -1593,13 +1657,13 @@ def phase_trainer(pt, wa, mlp_op, card, bare_step_ms):
 
 def kernels_line(results, bwd_results, cln_results, op_results, per_forward, rollout_counts,
                  step_counts, tail_forward, tail_counts, op_counts, general, f32_counts,
-                 odd_counts, trainer_counts, trainer_steps):
+                 odd_counts, trainer_counts, trainer_steps, b32_counts):
     """One entry per hand-written kernel. ``launches`` is the count from the
     path that runs it: the train step (the first four; with the Trainer's
     steps beside it), the fused-tail train step (the tail's two), the op's
     forward + backward path (the separate-q/k/v attention's two), the fp32
-    ScOT-T train step (the general kernels, with the mlp_ratio-3, D = 24
-    step's count beside it)."""
+    ScOT-B train step (the general kernels, with the fp32 ScOT-T and the
+    mlp_ratio-3, D = 24 ScOT-T steps' counts beside it)."""
     def entry(name, source, replaces, rows, shape_prefix, counts, **extra):
         row = next(r for r in rows if r["model"] == "B" and r["shape"].startswith(shape_prefix))
         b_rows = [r for r in rows if r["model"] == "B"]
@@ -1621,14 +1685,14 @@ def kernels_line(results, bwd_results, cln_results, op_results, per_forward, rol
     def general_entry(name, source, replaces, rows, prefix, **extra):
         row = next(r for r in rows if r["model"] == "B-fp32" and r["shape"].startswith(prefix))
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces, **extra,
-                "launches": f32_counts[name], "max_abs_err": max(r["max_abs_err"] for r in rows),
+                "launches": b32_counts[name], "max_abs_err": max(r["max_abs_err"] for r in rows),
                 "ms": row["kernel_ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"],
                 "device_ms": row["kernel_device_ms"],
                 "library_device_ms": row["library_device_ms"],
                 "shape": "ScOT-B fp32 b32 " + row["shape"],
-                "path": "ScOT-T fp32 train step (launches); D = 24, F = 3C bf16 step: "
-                        f"{odd_counts[name]}"}
+                "path": "ScOT-B fp32 train step (launches); ScOT-T fp32 step: "
+                        f"{f32_counts[name]}; D = 24, F = 3C bf16 step: {odd_counts[name]}"}
 
     def tail_path(name):
         return {"fused_tail_forward_launches": tail_forward[name],
@@ -1718,11 +1782,14 @@ def main() -> int:
     _, odd_counts, _ = phase_train(pt, wa_mod, mlp_op, odd_model, card, size="T",
                                    name="train_T_odd")
     del odd_model
-    # The Trainer: this slice's main path.
+    # ScOT-B in fp32 (the serving dtype of the inference CLI): the general
+    # kernels at full width and depth.
+    b32_counts = phase_fp32_b(pt, wa_mod, mlp_op, attn_mod, card)
+    # The Trainer.
     trainer_counts, trainer_steps = phase_trainer(pt, wa_mod, mlp_op, card, step_ms)
     emit(kernels_line(results, bwd_results, cln_results, op_results, per_forward,
                       rollout_counts, step_counts, tail_forward, tail_counts, op_counts, general,
-                      f32_counts, odd_counts, trainer_counts, trainer_steps))
+                      f32_counts, odd_counts, trainer_counts, trainer_steps, b32_counts))
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -26,6 +26,10 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
+# Flags of one source beside NVCC_FLAGS: the general attention source has
+# the most kernel instantiations, so its device-code optimisation and ptxas
+# run on every core (the other sources' builds are shorter and overlap).
+EXTRA_FLAGS = {"window_attention_general": ("--split-compile=0",)}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -51,7 +55,8 @@ def _sources(path: Path, seen: set) -> bytes:
 
 def library_path(name: str) -> Path:
     text = _sources(CSRC / f"{name}.cu", set())
-    digest = hashlib.sha1(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    flags = NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+    digest = hashlib.sha1(text + " ".join(flags).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -70,7 +75,8 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
         nvcc = nvcc or _nvcc()
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         log = open(out.with_suffix(".log"), "w")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, *EXTRA_FLAGS.get(name, ()), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT),
                        tmp, out, log, time.perf_counter())
     failed = []

@@ -36,8 +36,8 @@ q, k, v, the position bias, the mask and the logit scales.
 A CPU tensor goes to the plain version. A CUDA tensor goes to a kernel or
 raises: the Hopper kernels (``csrc/window_attention.cu``,
 ``csrc/window_attention_bwd.cu``) for bf16 with T <= 256 and D in {16, 32,
-64}, the general ones (``csrc/window_attention_general.cu``, fp32 FMA) for
-fp32 operands and any other T <= 1024 and D <= 128
+64}, the general ones (``csrc/window_attention_general.cu``: wgmma, fp32
+operands as 3xTF32) for fp32 operands and any other T <= 1024 and D <= 128
 (:func:`attention_kernel_for`).
 """
 
@@ -88,8 +88,8 @@ def attention_kernel_for(dtype: torch.dtype, t: int, d: int) -> str:
     """Which kernel a call on the card runs: ``"wgmma"`` (the Hopper
     kernels, ``csrc/window_attention.cu`` and ``window_attention_bwd.cu``)
     for bf16 operands with 1 <= T <= 256 and D in {16, 32, 64}, else
-    ``"general"`` (``csrc/window_attention_general.cu``: fp32 FMA, bf16 or
-    fp32 operands, 1 <= T <= 1024 and 1 <= D <= 128)."""
+    ``"general"`` (``csrc/window_attention_general.cu``: wgmma, bf16 or
+    fp32 operands (3xTF32), 1 <= T <= 1024 and 1 <= D <= 128)."""
     if dtype == torch.bfloat16 and 1 <= t <= 256 and d in (16, 32, 64):
         return "wgmma"
     return "general"
@@ -306,6 +306,22 @@ def _general_fwd(ptrs, ld, qb, bm, scale, out, n, t, heads, d, nw):
                            f"{_build.error_string(lib, err)}")
 
 
+def general_bwd_plan(n: int, nw: int, heads: int, t: int):
+    """(fold, G) of the general backward: whether its dk/dv kernel sums dbm
+    itself (T <= 64: one 64 x 64 fp32 sum in shared memory) or a dbm kernel
+    does, and the window groups G whose fp32 dbm partials (G x nW x H x T x
+    T) the one or the other writes. A CTA walks the windows of one group,
+    bias slot and head (and, in the dbm kernel, of one 64-query strip and
+    64-key block): about two CTAs an SM for the folded kernel, eight for
+    the dbm kernel's shorter walks, the partials within 32 MiB."""
+    blocks = -(-t // 64)
+    fold = blocks == 1
+    units = nw * heads * blocks * blocks
+    target = (2 if fold else 8) * _SMS
+    g = min(n // nw, max(1, -(-target // units)))
+    return fold, max(1, min(g, (32 << 20) // (nw * heads * t * t * 4)))
+
+
 def _general_bwd(ptrs, dptrs, ld, qb, bm, scale, do, n, t, heads, d, nw):
     """Launch the general backward kernels on q/k/v at ``ptrs`` with the
     output cotangent ``do`` (N, T, C), writing dq/dk/dv at ``dptrs`` (both
@@ -313,13 +329,15 @@ def _general_bwd(ptrs, dptrs, ld, qb, bm, scale, do, n, t, heads, d, nw):
     f32 = dict(dtype=torch.float32, device=do.device)
     dqb, dscale = torch.empty(heads * d, **f32), torch.empty(heads, **f32)
     dbm = torch.empty((nw, heads, t, t), **f32)
-    stats = torch.empty(n * heads * t * 3, **f32)              # row max, den, delta
-    part = torch.empty(n * heads * -(-t // 32) * (d + 1), **f32)  # per-CTA dqb | dscale
+    _, groups = general_bwd_plan(n, nw, heads, t)
+    stats = torch.empty(n * heads * t * 3, **f32)                 # row max, den, delta
+    part = torch.empty(n * heads * -(-t // 64) * (d + 1), **f32)  # per-CTA dqb | dscale
+    part_bm = torch.empty((groups, nw, heads, t, t), **f32)       # per-group dbm
     lib = _build.load("window_attention_general", _GENERAL_SIGNATURES)
     err = lib.window_attention_general_bwd(
         *ptrs, None if qb is None else qb.data_ptr(), bm.data_ptr(), scale.data_ptr(),
         do.data_ptr(), *dptrs, dqb.data_ptr(), dbm.data_ptr(), dscale.data_ptr(),
-        stats.data_ptr(), part.data_ptr(), ld, ld, n, t, heads, d, nw,
+        stats.data_ptr(), part.data_ptr(), part_bm.data_ptr(), ld, n, t, heads, d, nw, groups,
         int(do.dtype == torch.float32), torch.cuda.current_stream(do.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"window_attention_bwd general kernel launch failed: "
@@ -330,9 +348,9 @@ def _general_bwd(ptrs, dptrs, ld, qb, bm, scale, do, n, t, heads, d, nw):
 def kernel_info() -> dict:
     """Registers, local-memory (spill) bytes and dynamic shared-memory
     bytes of every instantiation of the two wgmma kernels, by padded window
-    NK = 64, 128, 256 and head width D, and of the general kernels' four
-    entries, by operand type and D rounded up to 32 (shared memory at that
-    D; builds and loads them)."""
+    NK = 64, 128, 256 and head width D, and of the general kernels' six
+    kernels, by operand type and padded head width DP (builds and loads
+    them)."""
     out = {}
     for name, sigs, entry in (("window_attention", _SIGNATURES, "window_attention_fwd_info"),
                               ("window_attention_bwd", _BWD_SIGNATURES,
@@ -347,16 +365,19 @@ def kernel_info() -> dict:
                 out[f"{name} NK={nk} D={d}"] = {"registers": vals[0], "spill_bytes": vals[1],
                                                 "smem_bytes": vals[2]}
     fn = _build.load("window_attention_general", _GENERAL_SIGNATURES).window_attention_general_info
-    for kernel, kname in enumerate(("fwd", "bwd_dq", "bwd_dkdv", "bwd_dbm")):
+    for kernel, kname in enumerate(("fwd T<=64", "fwd T<=256", "fwd T>256", "bwd_dq",
+                                    "bwd_dkdv", "bwd_dbm", "bwd_dkdv+dbm")):
         for fp32 in (0, 1):
-            for nv in (1, 2, 3, 4):
+            for dp in (16, 32, 64, 128):
+                if kname == "fwd T<=256" and fp32:
+                    continue  # not built: fp32 takes two passes past T = 64
                 vals = (ctypes.c_int * 3)()
-                err = fn(kernel, fp32, nv, ctypes.addressof(vals))
+                err = fn(kernel, fp32, dp, ctypes.addressof(vals))
                 if err != 0:
                     raise RuntimeError(f"window_attention_general info failed: {err}")
                 out[f"window_attention_general {kname} {'fp32' if fp32 else 'bf16'} "
-                    f"D<={32 * nv}"] = {"registers": vals[0], "spill_bytes": vals[1],
-                                         "smem_bytes": vals[2]}
+                    f"DP={dp}"] = {"registers": vals[0], "spill_bytes": vals[1],
+                                    "smem_bytes": vals[2]}
     return out
 
 
@@ -579,9 +600,9 @@ _BWD_SIGNATURES = {
 _GENERAL_SIGNATURES = {
     # q, k, v, qb, bm, scale, out, ld, ldo, n_windows, T, heads, D, nW, fp32, stream
     "window_attention_general_fwd": (_P,) * 7 + (_I,) * 8 + (_P,),
-    # q, k, v, qb, bm, scale, do, dq, dk, dv, dqb, dbm, dscale, stats, part, ld, ldd,
-    # n_windows, T, heads, D, nW, fp32, stream
-    "window_attention_general_bwd": (_P,) * 15 + (_I,) * 8 + (_P,),
-    # kernel, fp32, nv, int[3] out: registers, spill bytes, dynamic shared-memory bytes
+    # q, k, v, qb, bm, scale, do, dq, dk, dv, dqb, dbm, dscale, stats, part, part_bm,
+    # ld, n_windows, T, heads, D, nW, groups, fp32, stream
+    "window_attention_general_bwd": (_P,) * 16 + (_I,) * 8 + (_P,),
+    # kernel, fp32, DP, int[3] out: registers, spill bytes, dynamic shared-memory bytes
     "window_attention_general_info": (_I, _I, _I, _P),
 }

@@ -18,19 +18,26 @@ class GPUSpec:
     name: str
     peak_bf16_flops: float   # dense tensor-core FLOP/s
     peak_fp32_flops: float   # fp32 FMA FLOP/s on the CUDA cores (no tensor cores)
+    peak_tf32_flops: float   # dense tensor-core FLOP/s with tf32 operands
     hbm_bandwidth: float     # bytes/s
     smem_per_block: int      # bytes of shared memory a block may opt into
     num_sms: int
 
 
-H100 = GPUSpec("NVIDIA H100 SXM", 989e12, 67e12, 3.35e12, 232_448, 132)
+H100 = GPUSpec("NVIDIA H100 SXM", 989e12, 67e12, 495e12, 3.35e12, 232_448, 132)
 
 
-def bound_ms(flops: float, nbytes: float, spec: GPUSpec = H100, fp32: bool = False):
+def bound_ms(flops: float, nbytes: float, spec: GPUSpec = H100, fp32: bool = False,
+             tf32x3: bool = False):
     """(least time in ms, "operations" or "bytes"): the larger of the time
-    for ``flops`` at the peak rate of the operands' type (bf16 tensor cores,
-    or with ``fp32`` the fp32 FMA rate) and the memory time for ``nbytes``."""
-    t_ops = flops / (spec.peak_fp32_flops if fp32 else spec.peak_bf16_flops)
+    for ``flops`` at the peak rate of the instructions that do them (bf16
+    tensor cores; with ``fp32`` the fp32 FMA rate; with ``tf32x3`` three
+    tf32 tensor-core products a product, the fp32 split of the general
+    attention kernels) and the memory time for ``nbytes``."""
+    if tf32x3:
+        t_ops = 3.0 * flops / spec.peak_tf32_flops
+    else:
+        t_ops = flops / (spec.peak_fp32_flops if fp32 else spec.peak_bf16_flops)
     t_mem = nbytes / spec.hbm_bandwidth
     if t_ops >= t_mem:
         return t_ops * 1e3, "operations"

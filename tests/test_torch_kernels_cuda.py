@@ -8,7 +8,8 @@ sum near zero. Each backward kernel also gives the same bits on two calls
 its plain forward within relative L2 5e-2 per gradient (the two round to
 bf16 at different points). The general kernels (fp32 operands and the
 shapes the wgmma kernels refuse) are held to the fp32 plain versions by
-relative L2 <= 1e-4 (TF32 off; the sum order is the only difference) and in
+relative L2 <= 1e-4 (TF32 off in the plain versions; the sum order, and for
+the attention kernels the 3xTF32 split, are the only differences) and in
 bf16 as above. They need a CUDA card and skip without one. This file imports neither JAX
 nor the JAX package, so it runs on a machine without them:
 
@@ -329,14 +330,25 @@ def test_fused_window_attention_fp32_on_card_takes_general_kernel():
 # <= 1e-4, the sum order being the only difference; bf16 operands at the
 # wgmma kernels' tolerances. (T, H, D, shifted, dtype): ScOT-B and ScOT-T
 # stage shapes in fp32, head width 24 (ScOT-T with heads (2, 4, 8, 16)),
-# windows 24x24 and 32x32, and widths 1-128.
+# windows 24x24 and 32x32, and widths 1-128. The fp32 kernels run 3xTF32
+# on the tensor cores (wgmma.cuh), and are held at the same 1e-4.
 FP32_TOL = 1e-4
 GENERAL_ATTN = [(256, 3, 32, True, "fp32"), (64, 12, 32, False, "fp32"),
                 (16, 24, 32, True, "fp32"), (256, 3, 16, True, "fp32"),
                 (256, 2, 24, True, "bf16"), (256, 2, 24, False, "fp32"),
                 (576, 2, 32, True, "bf16"), (576, 2, 32, False, "fp32"),
                 (49, 3, 40, False, "bf16"), (1024, 1, 8, False, "fp32"),
-                (64, 1, 128, True, "fp32"), (16, 2, 1, False, "fp32"), (9, 2, 100, False, "bf16")]
+                (64, 1, 128, True, "fp32"), (16, 2, 1, False, "fp32"), (9, 2, 100, False, "bf16"),
+                # Padding edges of the head width (padded in shared memory to
+                # 16, 32, 64 or 128), and windows past 256 tokens that are not
+                # a multiple of 64 (the forward's two-pass walk).
+                (64, 2, 8, False, "fp32"), (64, 2, 8, True, "bf16"),
+                (49, 2, 17, True, "fp32"), (49, 2, 17, False, "bf16"),
+                (256, 2, 48, True, "fp32"), (256, 2, 48, False, "bf16"),
+                (100, 2, 100, True, "fp32"), (100, 2, 100, False, "bf16"),
+                (256, 1, 128, True, "fp32"), (256, 1, 128, False, "bf16"),
+                (400, 2, 32, True, "fp32"), (400, 2, 24, True, "bf16"),
+                (1000, 1, 32, False, "fp32"), (1000, 1, 17, False, "bf16")]
 
 
 def _general_check(out, ref, dtype, sums=False):
