@@ -62,16 +62,15 @@ Phases, one JSON line each (any failure ends the run with a non-zero exit):
    ("model_T", "train_T"), launches one attention kernel per block and the
    MLP kernel at stages 0-1 (C = 48 and 96): 32/16 per forward, 32/32/16/16
    per step;
-14. general kernels ("general_kernel"): the general attention kernels
-   (wgmma; fp32 operands as 3xTF32) and the fp32-FMA MLP kernels against
-   their plain versions, forward and backward (two backward calls
-   bit-identical), at every ScOT-B attention and MLP shape in fp32,
-   ScOT-T's with heads (2, 4, 8, 16) (D = 24) and mlp_ratio 3 (F = 144,
-   288) in bf16, ScOT-T's MLP in fp32 and a 24x24 window (T = 576) in bf16
-   and fp32; fp32 held by relative L2 <= 1e-4, bf16 as the wgmma phases;
-   times, library times and bounds as in 2 and 6 (fp32 attention at three
-   tf32 products a product on the tensor cores, the fp32 MLP at the fp32
-   FMA rate);
+14. general kernels ("general_kernel"): the general attention and MLP
+   kernels (wgmma; fp32 operands as 3xTF32) against their plain versions,
+   forward and backward (two backward calls bit-identical), at every
+   ScOT-B attention and MLP shape in fp32, ScOT-T's with heads (2, 4, 8,
+   16) (D = 24) and mlp_ratio 3 (F = 144, 288) in bf16, ScOT-T's and
+   ScOT-L's MLP in fp32 and a 24x24 window (T = 576) in bf16 and fp32; fp32
+   held by relative L2 <= 1e-4, bf16 as the wgmma phases; times, library
+   times and bounds as in 2 and 6 (fp32 at three tf32 products a product
+   on the tensor cores);
 15. ScOT-T in fp32 ("model_T_fp32", "train_T_fp32"; kernel path vs plain
    path relative L2 <= 1e-4, forward and gradients; every attention and MLP
    call on the general kernels: 32/16 per forward) and ScOT-T with heads
@@ -79,9 +78,10 @@ Phases, one JSON line each (any failure ends the run with a non-zero exit):
    bf16 gates of 3 and 7; the general kernels again);
 16. ScOT-B in fp32, the inference CLI's compute dtype ("model_B_fp32",
    "train_B_fp32", each with a profile): full width and depth, kernel path
-   vs plain path relative L2 <= 1e-4, 64 general attention launches a
-   forward and 64 / 64 a step; wall ms, device busy ms, idle share and the
-   general attention kernels' device ms of one forward and one step;
+   vs plain path relative L2 <= 1e-4, 64 general attention and 32 general
+   MLP launches a forward, 64 / 64 and 32 / 32 a step; wall ms, device busy
+   ms, idle share and the general attention and MLP kernels' device ms of
+   one forward and one step;
 17. trainer: the port's Trainer on a synthetic CE-Gauss file (see
    ``phase_trainer``): ScOT-B train with mid-epoch checkpoints, evaluate,
    predict with two AR steps, and a resumed run held to the uninterrupted
@@ -325,9 +325,11 @@ def attention_bwd_bound(n, t, heads, d, nw, bound_ms, es=2):
 
 def mlp_bwd_bound(m, c, f, bound_ms, es=2):
     """u (recomputed), dh, dx, dW1, dW2: 10 M C F FLOPs; x, dy, W1, W2, b1
-    read once, dx, dW1, dW2, db1, db2 written once."""
+    read once, dx, dW1, dW2, db1, db2 written once. ``es``: bytes an operand
+    (4: fp32, whose products the general kernels issue as three tf32 ones,
+    at the dense TF32 rate)."""
     nbytes = 3 * m * c * es + 2 * c * f * es + f * 4 + 2 * c * f * 4 + (f + c) * 4
-    return bound_ms(10.0 * m * c * f, nbytes, fp32=es == 4)
+    return bound_ms(10.0 * m * c * f, nbytes, tf32x3=es == 4)
 
 
 # The MLP's second floor: the GELU (forward) or the GELU and its derivative
@@ -808,11 +810,14 @@ def general_attention_cases(pt):
 
 def general_mlp_cases(pt, mlp_op):
     """(model, tag, M, C, F, dtype) of the calls the general MLP kernel
-    serves on the main paths: ScOT-B and ScOT-T stages 0-1 in fp32, and
-    ScOT-T's with mlp_ratio 3 (F = 144 and 288) in bf16, batch 32."""
+    serves on the main paths: ScOT-B, ScOT-T and ScOT-L stages 0-1 in fp32
+    (ScOT-L stage 1: C = 384, the first output width past one warpgroup's
+    192 columns), and ScOT-T's with mlp_ratio 3 (F = 144 and 288) in bf16,
+    batch 32."""
     out = []
     for model_name, size, over, dt in (("B-fp32", "B", {}, torch.float32),
                                        ("T-fp32", "T", {}, torch.float32),
+                                       ("L-fp32", "L", {}, torch.float32),
                                        ("T-odd", "T", ODD, torch.bfloat16)):
         cfg = pt.make_config(size, image_size=128, num_channels=4, num_out_channels=4, **over)
         out += [(model_name, *shape, dt) for shape in mlp_shapes(cfg, BATCH, mlp_op)]
@@ -847,9 +852,8 @@ def phase_general_kernels(pt, wa, mlp_op, attn_mod, bound_ms, card):
     ``general_attention_cases`` and ``general_mlp_cases``: forward and
     backward, two backward calls compared bit for bit, kernel (events and
     device time), plain and library times (SDPA, or F.linear / F.gelu /
-    F.linear, in the operands' dtype, TF32 off), and the bound (fp32
-    attention at three tf32 products a product on the tensor cores, the
-    fp32 MLP at the fp32 FMA rate)."""
+    F.linear, in the operands' dtype, TF32 off), and the bound (fp32 at
+    three tf32 products a product on the tensor cores)."""
     gen = torch.Generator().manual_seed(11)
     results = {"attention_fwd": [], "attention_bwd": [], "mlp_fwd": [], "mlp_bwd": []}
 
@@ -924,7 +928,7 @@ def phase_general_kernels(pt, wa, mlp_op, attn_mod, bound_ms, card):
             "mlp_general_fwd", model_name, shape, errs, ok, general_tol(fp32, MLP_TOL, ("out",)),
             (lambda: mlp_op.mlp(x, w1, b1, w2, b2), lambda: mlp_op.mlp_plain(x, w1, b1, w2, b2)),
             lambda: F.linear(F.gelu(F.linear(x, w1, b1l)), w2, b2l),
-            bound_ms(4.0 * m * c * f, nbytes, fp32=fp32)))
+            bound_ms(4.0 * m * c * f, nbytes, tf32x3=fp32)))
         del out, ref
         args = (x, w1, b1, w2, dy)
         out = mlp_op.mlp_bwd(*args)
@@ -1316,17 +1320,18 @@ def phase_train_profile(step, step_ms, card, fused_tail=False):
 
 
 GENERAL_ATTN_GROUP = "port general attention kernels"
+GENERAL_MLP_GROUP = "port general MLP kernels"
 
 
 def phase_fp32_b(pt, wa, mlp_op, attn_mod, card):
     """ScOT-B b32 in fp32, the compute dtype of the inference CLI and the
     default of ``build_model`` and ``from_pretrained``: every attention call
     on the general kernels (64 a forward, 64 / 64 a step) and every MLP call
-    on the general MLP kernels. The forward (phase "model_B_fp32") and the
-    train step ("train_B_fp32") against the plain path on the same weights
-    (relative L2 <= FP32_REL_TOL), then one profiled forward and step:
-    device busy, idle share, and the general attention kernels' device
-    time."""
+    on the general MLP kernels (32 a forward, 32 / 32 a step). The forward
+    (phase "model_B_fp32") and the train step ("train_B_fp32") against the
+    plain path on the same weights (relative L2 <= FP32_REL_TOL), then one
+    profiled forward and step: device busy, idle share, and the general
+    attention and MLP kernels' device time."""
     model, x, t, fwd_counts, fwd_ms = phase_model(
         pt, wa, mlp_op, attn_mod, card, size="B", dtype=torch.float32, tol=FP32_REL_TOL,
         name="model_B_fp32")
@@ -1337,23 +1342,29 @@ def phase_fp32_b(pt, wa, mlp_op, attn_mod, card):
 
     prof = device_time_profile(forward, fwd_ms)
     attn = prof["busy_ms_by_group"].get(GENERAL_ATTN_GROUP, 0.0)
-    ok = fwd_counts["window_attention_general_fwd"] == 64 and attn > 0
+    mlp = prof["busy_ms_by_group"].get(GENERAL_MLP_GROUP, 0.0)
+    ok = (fwd_counts["window_attention_general_fwd"] == 64 and attn > 0
+          and fwd_counts["mlp_general_fwd"] == 32 and mlp > 0)
     emit({"phase": "model_B_fp32_profile", "what": "one ScOT-B fp32 b32 forward, kernel path",
           "forward_ms": fwd_ms, "general_attention_device_ms": attn,
-          "general_attention_launches": fwd_counts["window_attention_general_fwd"], **prof,
-          "ok": ok, "card": card})
+          "general_attention_launches": fwd_counts["window_attention_general_fwd"],
+          "general_mlp_device_ms": mlp, "general_mlp_launches": fwd_counts["mlp_general_fwd"],
+          **prof, "ok": ok, "card": card})
     if not ok:
         raise SystemExit("model_B_fp32_profile phase failed")
     step, step_counts, step_ms = phase_train(pt, wa, mlp_op, model, card, size="B",
                                              tol=FP32_REL_TOL, name="train_B_fp32")
     prof = device_time_profile(step, step_ms)
     attn = prof["busy_ms_by_group"].get(GENERAL_ATTN_GROUP, 0.0)
+    mlp = prof["busy_ms_by_group"].get(GENERAL_MLP_GROUP, 0.0)
     got = (step_counts["window_attention_general_fwd"],
            step_counts["window_attention_general_bwd"])
-    ok = got == (64, 64) and attn > 0
+    got_mlp = (step_counts["mlp_general_fwd"], step_counts["mlp_general_bwd"])
+    ok = got == (64, 64) and attn > 0 and got_mlp == (32, 32) and mlp > 0
     emit({"phase": "train_B_fp32_profile", "what": "one ScOT-B fp32 b32 train step, kernel path",
           "train_step_ms": step_ms, "general_attention_device_ms": attn,
-          "general_attention_launches_fwd_bwd": list(got), **prof, "ok": ok, "card": card})
+          "general_attention_launches_fwd_bwd": list(got), "general_mlp_device_ms": mlp,
+          "general_mlp_launches_fwd_bwd": list(got_mlp), **prof, "ok": ok, "card": card})
     if not ok:
         raise SystemExit("train_B_fp32_profile phase failed")
     del model, step

@@ -26,10 +26,11 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
-# Flags of one source beside NVCC_FLAGS: the general attention source has
-# the most kernel instantiations, so its device-code optimisation and ptxas
-# run on every core (the other sources' builds are shorter and overlap).
-EXTRA_FLAGS = {"window_attention_general": ("--split-compile=0",)}
+# Flags of one source beside NVCC_FLAGS: the general sources have the most
+# kernel instantiations, so their device-code optimisation and ptxas run on
+# every core (the other sources' builds are shorter and overlap).
+EXTRA_FLAGS = {"window_attention_general": ("--split-compile=0",),
+               "mlp_general": ("--split-compile=0",)}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 

@@ -27,9 +27,9 @@ A CPU tensor goes to the plain version. A CUDA tensor goes to a kernel or
 raises: the Hopper kernels (``csrc/mlp.cu``, ``csrc/mlp_bwd.cu``,
 ``csrc/mlp_cln.cu``, ``csrc/mlp_cln_bwd.cu``) for bf16 with C in
 ``KERNEL_WIDTHS`` and F % 64 == 0, the general MLP kernels
-(``csrc/mlp_general.cu``, fp32 FMA, erff GELU) for fp32 operands and any
-other C <= 1024 and F <= 4096 (:func:`mlp_kernel_for`). The fused tail has
-only the Hopper kernels.
+(``csrc/mlp_general.cu``: wgmma, fp32 operands as three tf32 products of a
+hi/lo split, erff GELU) for fp32 operands and any other C <= 1024 and F <=
+4096 (:func:`mlp_kernel_for`). The fused tail has only the Hopper kernels.
 """
 
 from __future__ import annotations
@@ -62,8 +62,8 @@ GENERAL_MAX_F = 4096
 def mlp_kernel_for(c: int, f: int, dtype: torch.dtype) -> str:
     """Which MLP kernel a call on the card runs: ``"wgmma"`` (``csrc/mlp.cu``,
     ``csrc/mlp_bwd.cu``) for bf16 operands with C in ``KERNEL_WIDTHS`` and
-    F % 64 == 0, else ``"general"`` (``csrc/mlp_general.cu``: fp32 FMA,
-    bf16 or fp32 operands, C <= 1024 and F <= 4096)."""
+    F % 64 == 0, else ``"general"`` (``csrc/mlp_general.cu``: wgmma, fp32
+    as 3xTF32, bf16 or fp32 operands, C <= 1024 and F <= 4096)."""
     if dtype == torch.bfloat16 and c in KERNEL_WIDTHS and f % 64 == 0:
         return "wgmma"
     return "general"
@@ -126,10 +126,11 @@ def _forward(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     out = torch.empty((m, c), dtype=x.dtype, device=x.device)
     if kernel == "general":
         lib = _build.load("mlp_general", _GENERAL_SIGNATURES)
+        fp32 = int(x.dtype == torch.float32)
+        scratch = _general_scratch(lib, 0, m, c, f, 0, fp32, x.device)
         err = lib.mlp_general_fwd(x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                                  b2.data_ptr(), out.data_ptr(), m, c, f,
-                                  int(x.dtype == torch.float32),
-                                  torch.cuda.current_stream(x.device).cuda_stream)
+                                  b2.data_ptr(), out.data_ptr(), scratch.data_ptr(), m, c, f,
+                                  fp32, torch.cuda.current_stream(x.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"mlp general kernel launch failed: "
                                f"{_build.error_string(lib, err)}")
@@ -216,30 +217,37 @@ def mlp_bwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tenso
 
 
 def general_bwd_splits(m: int, c: int, f: int) -> int:
-    """Row splits R of the general backward's weight-gradient CTAs: about
-    two such CTAs an SM over dW1 and dW2 together, at least 32 rows a split,
-    and the (R, 2 F C) fp32 partials kept within 64 MiB."""
-    tiles = 2 * -(-f // 64) * -(-c // 64)
-    r = -(-2 * _BWD_TARGET_CTAS // tiles)
-    return max(1, min(r, -(-m // 32), (64 << 20) // (8 * f * c)))
+    """Row splits R of the general backward's weight-gradient CTAs (one per
+    64 hidden rows and block of at most 192 output columns, two
+    warpgroups, about one CTA an SM): enough splits for one CTA an SM, at
+    most one per 64 rows, and the (R, 2 F C) fp32 partials kept within
+    64 MiB."""
+    tiles = -(-f // 64) * -(-c // 192)
+    r = -(-_BWD_TARGET_CTAS // tiles)
+    return max(1, min(r, -(-m // 64), (64 << 20) // (8 * f * c)))
+
+
+def _general_scratch(lib, bwd, m, c, f, r, fp32, device):
+    """The general kernels' scratch for a call (their pre-split weights,
+    partial sums and, for the backward, du, g, x and dy transposed)."""
+    nbytes = ctypes.c_longlong(0)
+    err = lib.mlp_general_scratch(bwd, m, c, f, r, fp32, ctypes.addressof(nbytes))
+    if err != 0:
+        raise RuntimeError(f"mlp general kernel plan failed: {_build.error_string(lib, err)}")
+    return torch.empty(max(1, nbytes.value), dtype=torch.uint8, device=device)
 
 
 def _general_bwd(x2, w1, b1, w2, dy2, m, c, f, x_shape):
-    """The general backward kernel's launch: (dx, dw1, db1, dw2, db2)."""
+    """The general backward kernels' launch: (dx, dw1, db1, dw2, db2)."""
     r = general_bwd_splits(m, c, f)
-    f32 = dict(dtype=torch.float32, device=x2.device)
+    fp32 = int(x2.dtype == torch.float32)
     dx = torch.empty_like(x2)
-    grads = torch.empty(2 * f * c + f + c, **f32)        # dw1 | dw2 | db1 | db2
-    dub = torch.empty((m, f), dtype=x2.dtype, device=x2.device)  # cast(du)
-    g = torch.empty_like(dub)                                     # cast(gelu(u))
-    partw = torch.empty((r, 2 * f * c), **f32)
-    partb = torch.empty((-(-m // 64), f + c), **f32)
+    grads = torch.empty(2 * f * c + f + c, dtype=torch.float32, device=x2.device)
     lib = _build.load("mlp_general", _GENERAL_SIGNATURES)
+    scratch = _general_scratch(lib, 1, m, c, f, r, fp32, x2.device)
     err = lib.mlp_general_bwd(x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                              dy2.data_ptr(), dx.data_ptr(), grads.data_ptr(), dub.data_ptr(),
-                              g.data_ptr(), partw.data_ptr(), partb.data_ptr(), m, c, f, r,
-                              int(x2.dtype == torch.float32),
-                              torch.cuda.current_stream(x2.device).cuda_stream)
+                              dy2.data_ptr(), dx.data_ptr(), grads.data_ptr(), scratch.data_ptr(),
+                              m, c, f, r, fp32, torch.cuda.current_stream(x2.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"mlp_bwd general kernel launch failed: "
                            f"{_build.error_string(lib, err)}")
@@ -284,21 +292,28 @@ _SIGNATURES = {"mlp_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P), "mlp_fwd_inf
 # x, w1, b1, w2, dy, dx, grads, partials, M, C, F, R, stream
 _BWD_SIGNATURES = {"mlp_bwd": (_P,) * 8 + (_I,) * 4 + (_P,), "mlp_bwd_info": (_I, _P)}
 _GENERAL_SIGNATURES = {
-    # x, w1, b1, w2, b2, out, M, C, F, fp32, stream
-    "mlp_general_fwd": (_P,) * 6 + (_I,) * 4 + (_P,),
-    # x, w1, b1, w2, dy, dx, grads, dub, g, partw, partb, M, C, F, R, fp32, stream
-    "mlp_general_bwd": (_P,) * 11 + (_I,) * 5 + (_P,),
-    # kernel, fp32, int[3] out: registers, spill bytes, static shared-memory bytes
-    "mlp_general_info": (_I, _I, _P),
+    # x, w1, b1, w2, b2, out, scratch, M, C, F, fp32, stream
+    "mlp_general_fwd": (_P,) * 7 + (_I,) * 4 + (_P,),
+    # x, w1, b1, w2, dy, dx, grads, scratch, M, C, F, R, fp32, stream
+    "mlp_general_bwd": (_P,) * 8 + (_I,) * 5 + (_P,),
+    # bwd, M, C, F, R, fp32, long long out: scratch bytes
+    "mlp_general_scratch": (_I,) * 6 + (_P,),
+    # kernel, fp32, output width, int[3] out: registers, spill bytes, shared-memory bytes
+    "mlp_general_info": (_I, _I, _I, _P),
 }
+# Output columns a warpgroup of the general kernels holds, by instantiation.
+GENERAL_WIDTHS = (32, 48, 64, 96, 128, 192)
 
 
 def kernel_info() -> dict:
     """Registers, local-memory (spill) bytes and dynamic shared-memory bytes
     of every instantiation of the four wgmma MLP kernels (the tail
     backward's prologue; its middle launch is the MLP backward's kernel), by
-    width C, and of the general kernels' five, by operand type (static
-    shared memory; builds and loads them)."""
+    width C, and of the general kernels' seven, by operand type and, for the
+    forward, rows and weight kernels, by the output width a warpgroup holds
+    (``GENERAL_WIDTHS``; dynamic shared memory of the plan at C = that width,
+    F = 4C, M = 32768; the rows kernel whose warpgroups split a step at 192
+    only). Builds and loads them."""
     out = {}
     for name, sigs, entry in (("mlp", _SIGNATURES, "mlp_fwd_info"),
                               ("mlp_bwd", _BWD_SIGNATURES, "mlp_bwd_info"),
@@ -313,14 +328,18 @@ def kernel_info() -> dict:
             out[f"{name} C={c}"] = {"registers": vals[0], "spill_bytes": vals[1],
                                     "smem_bytes": vals[2]}
     fn = _build.load("mlp_general", _GENERAL_SIGNATURES).mlp_general_info
-    for kernel, kname in enumerate(("fwd", "bwd_hidden", "bwd_dx", "bwd_dw", "bwd_reduce")):
+    names = ("fwd", "bwd_rows", "bwd_dw", "prep", "sum_splits", "bwd_reduce", "bwd_rows_split")
+    for kernel, kname in enumerate(names):
         for fp32 in (0, 1):
-            vals = (ctypes.c_int * 3)()
-            err = fn(kernel, fp32, ctypes.addressof(vals))
-            if err != 0:
-                raise RuntimeError(f"mlp_general info failed: {err}")
-            out[f"mlp_general {kname} {'fp32' if fp32 else 'bf16'}"] = {
-                "registers": vals[0], "spill_bytes": vals[1], "smem_bytes": vals[2]}
+            by_width = kernel in (0, 1, 2, 6)
+            for nw in (GENERAL_WIDTHS[-1:] if kernel == 6 else GENERAL_WIDTHS) if by_width else (0,):
+                vals = (ctypes.c_int * 3)()
+                err = fn(kernel, fp32, nw, ctypes.addressof(vals))
+                if err != 0:
+                    raise RuntimeError(f"mlp_general info failed: {err}")
+                key = f"mlp_general {kname} {'fp32' if fp32 else 'bf16'}"
+                out[key + (f" NW={nw}" if by_width else "")] = {
+                    "registers": vals[0], "spill_bytes": vals[1], "smem_bytes": vals[2]}
     return out
 
 

@@ -115,15 +115,15 @@ def test_window_attention_function_matches_autograd_of_plain(t, h, d, shifted):
 MLP_SHAPES = [(1000, 96), (512, 192), (300, 384), (64, 96), (1000, 48), (256, 48)]
 
 
-def _mlp_inputs(m, c, seed, f=None):
+def _mlp_inputs(m, c, seed, f=None, dtype=torch.bfloat16):
     g = torch.Generator().manual_seed(seed)
     f = f or 4 * c
-    x = torch.randn(m, c, generator=g).to("cuda", torch.bfloat16)
-    w1 = (torch.randn(f, c, generator=g) / c ** 0.5).to("cuda", torch.bfloat16)
-    w2 = (torch.randn(c, f, generator=g) / f ** 0.5).to("cuda", torch.bfloat16)
+    x = torch.randn(m, c, generator=g).to("cuda", dtype)
+    w1 = (torch.randn(f, c, generator=g) / c ** 0.5).to("cuda", dtype)
+    w2 = (torch.randn(c, f, generator=g) / f ** 0.5).to("cuda", dtype)
     b1 = (0.1 * torch.randn(f, generator=g)).cuda()
     b2 = (0.1 * torch.randn(c, generator=g)).cuda()
-    dy = torch.randn(m, c, generator=g).to("cuda", torch.bfloat16)
+    dy = torch.randn(m, c, generator=g).to("cuda", dtype)
     return x, w1, b1, w2, b2, dy
 
 
@@ -417,9 +417,21 @@ def test_general_separate_qkv_kernels_match_plain(t, h, d, shifted, dtype):
 
 # (M, C, F, dtype): ScOT-B and ScOT-T stage 0-1 widths in fp32, ScOT-T's
 # mlp_ratio=3 widths in bf16 (F = 144, 288), and odd and largest widths.
+# fp32 operands are drawn in fp32: values rounded from bf16 have a zero lo
+# part and would leave half of the 3xTF32 split untested.
 GENERAL_MLP = [(4096, 96, 384, "fp32"), (4096, 48, 192, "fp32"), (2048, 48, 144, "bf16"),
                (1000, 96, 288, "bf16"), (777, 64, 200, "fp32"), (300, 1024, 4096, "fp32"),
-               (100, 17, 33, "bf16")]
+               (100, 17, 33, "bf16"),
+               # Edges of the wgmma design: rows fewer than a 64-row tile, and
+               # not a multiple of one; C not a multiple of 8 or 16 (padded in
+               # shared memory) in both dtypes; C = 384 and 1024 (output
+               # columns in blocks of 192, x in chunks past ~450 in fp32); F
+               # not a multiple of 64 in fp32 (the last step masked); ScOT-B
+               # and ScOT-L fp32 stages at reduced and full rows.
+               (5, 96, 384, "fp32"), (5, 48, 144, "bf16"), (333, 192, 768, "fp32"),
+               (100, 17, 33, "fp32"), (200, 20, 80, "fp32"), (200, 20, 80, "bf16"),
+               (300, 100, 400, "fp32"), (600, 384, 1536, "fp32"), (600, 384, 1000, "bf16"),
+               (130, 1024, 4096, "bf16"), (500, 96, 100, "fp32"), (8192, 384, 1536, "fp32")]
 
 
 @pytest.mark.cuda
@@ -427,9 +439,8 @@ GENERAL_MLP = [(4096, 96, 384, "fp32"), (4096, 48, 192, "fp32"), (2048, 48, 144,
 def test_general_mlp_kernels_match_plain(m, c, f, dtype):
     _needs_card()
     torch.backends.cuda.matmul.allow_tf32 = False
-    x, w1, b1, w2, b2, dy = _mlp_inputs(m, c, 13, f)
-    if dtype == "fp32":
-        x, w1, w2, dy = x.float(), w1.float(), w2.float(), dy.float()
+    x, w1, b1, w2, b2, dy = _mlp_inputs(
+        m, c, 13, f, torch.float32 if dtype == "fp32" else torch.bfloat16)
     assert mlp_op.mlp_kernel_for(c, f, x.dtype) == "general"
     before = (mlp_op.mlp.launches_general, mlp_op.mlp_bwd.launches_general)
     out = mlp_op.mlp(x, w1, b1, w2, b2)
