@@ -87,7 +87,24 @@ Phases, one JSON line each (any failure ends the run with a non-zero exit):
    predict with two AR steps, and a resumed run held to the uninterrupted
    one bit for bit; steps/s beside the bare step, the loader's time, the
    device idle share, launches per step (64/64/32/32);
-18. the kernels line; 19. the device line, last.
+18. remat: the ScOT-B bf16 train step with hidden dropout and drop-path on
+   (masks from a CUDA generator) under each gradient-checkpointing mode
+   against the step without it: loss, gradients (relative L2 <= 1e-6) and
+   the generator's end state; launches (128/64/64/32 under ``True``); step
+   time and peak memory per mode (see ``phase_remat``);
+19. cli_train: ``python -m poseidon_tpu_torch.train`` in process on a
+   synthetic CE-Gauss directory (ScOT-B bf16, two epochs), then
+   ``save_pretrained`` and the fine-tune onto a Poisson-Gauss directory
+   with ``--replace_embedding_recovery``, and the same without the flag
+   failing (see ``phase_cli_train``);
+20. cli_inference: ``python -m poseidon_tpu_torch.inference`` in process
+   on that run directory in fp32 (general kernels), every mode that reads
+   one model, ``eval`` held to the plain path (see ``phase_cli_inference``);
+21. intermediates: ``forward_with_intermediates`` and
+   ``rollout_with_intermediates`` on ScOT-B fp32 (see
+   ``phase_intermediates``);
+22. the kernels line (with each kernel's launches in phases 18-20); 23. the
+   device line, last.
 
 Exits non-zero without printing results when CUDA is absent.
 """
@@ -97,9 +114,11 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1400,16 +1419,18 @@ def phase_tail_vs_unfused(model, tail_model, x, t, step, tail_step, card):
 TRAIN_TRAJ = 4  # x 36 (t1, t2) pairs = 144 samples: 4 steps an epoch at batch 32
 
 
-def write_ce_gauss(path):
+def write_ce_gauss(path, train_traj=TRAIN_TRAJ, train_times=range(0, 15, 2),
+                   val_times=(0, 2), test_times=()):
     """A sparse synthetic CE-Gauss file in the dataset's schema: ``data``
-    (10000, 21, 4, 128, 128) f32, and only the frames the splits below read
-    are written (train: trajectories [0, TRAIN_TRAJ), times 0-14 step 2;
-    val: its 120 trajectories at times 0 and 2). Each trajectory is a blocky
-    random field that decays in time, so that the operator is learnable. An
-    HDF5 file in (1, 1, 4, 128, 128) chunks where h5py is installed, else
-    the data layer's other format (``data/base.py::open_data_file``): a
-    directory holding ``data.npy``, a sparse memory-mapped file. Returns
-    (format, bytes written)."""
+    (10000, 21, 4, 128, 128) f32, and only the frames the splits read are
+    written (by default, the Trainer phase's: train trajectories [0,
+    TRAIN_TRAJ) at times 0-14 step 2; val, its 120 trajectories at times 0
+    and 2; the test split's 240 at ``test_times``). Each trajectory is a
+    blocky random field that decays in time, so that the operator is
+    learnable. An HDF5 file in (1, 1, 4, 128, 128) chunks where h5py is
+    installed, else the data layer's other format
+    (``data/base.py::open_data_file``): a directory holding ``data.npy``, a
+    sparse memory-mapped file. Returns (format, bytes written)."""
     try:
         import h5py
     except ImportError:
@@ -1421,8 +1442,9 @@ def write_ce_gauss(path):
 
     def fill(d):
         written = 0
-        for traj, times in ([(i, range(0, 15, 2)) for i in range(TRAIN_TRAJ)]
-                            + [(i, (0, 2)) for i in range(val0, val0 + n_val)]):
+        for traj, times in ([(i, train_times) for i in range(train_traj)]
+                            + [(i, val_times) for i in range(val0, val0 + n_val)]
+                            + [(i, test_times) for i in range(n_max - n_test, n_max)]):
             base = np.kron(rng.normal(size=(4, 16, 16)), np.ones((8, 8))).astype(np.float32)
             base[0] += 1.5   # density and pressure around their dataset means
             base[3] += 2.5
@@ -1435,13 +1457,22 @@ def write_ce_gauss(path):
         with h5py.File(path, "w") as f:
             return "hdf5", fill(f.create_dataset("data", shape=shape, dtype="f4",
                                                  chunks=(1, 1, 4, 128, 128)))
+    return "npy", _write_npy_dir(path, {"data": shape}, lambda arrays: fill(arrays["data"]))
+
+
+def _write_npy_dir(path, shapes, fill):
+    """A directory of sparse memory-mapped ``<key>.npy`` files of the given
+    shapes (the data layer reads it as an HDF5 file), filled by
+    ``fill(arrays)``; returns what ``fill`` returns."""
     os.makedirs(path)
-    d = np.lib.format.open_memmap(os.path.join(path, "data.npy"), mode="w+", dtype=np.float32,
-                                  shape=shape)
-    written = fill(d)
-    d.flush()
-    del d
-    return "npy", written
+    arrays = {k: np.lib.format.open_memmap(os.path.join(path, f"{k}.npy"), mode="w+",
+                                           dtype=np.float32, shape=shape)
+              for k, shape in shapes.items()}
+    out = fill(arrays)
+    for a in arrays.values():
+        a.flush()
+    del arrays
+    return out
 
 
 def trace_busy(trace_dir):
@@ -1666,15 +1697,485 @@ def phase_trainer(pt, wa, mlp_op, card, bare_step_ms):
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
 
 
+# ---------------------------------------------------------------------------
+# Gradient checkpointing, the command lines, intermediates
+# ---------------------------------------------------------------------------
+
+REMAT_MODES = (False, True, "save_all", "save_dots")
+REMAT_RATES = {"hidden_dropout_prob": 0.1, "drop_path_rate": 0.1}
+REMAT_REL_TOL = 1e-6   # relative L2 of the whole gradient, each mode vs no checkpointing
+CLI_TRAIN_TRAJ = 32    # x 3 (t1, t2) pairs at times 0 and 2 = 96 samples: 3 steps an epoch
+CLI_FINETUNE_TRAJ = 64  # Poisson-Gauss samples: 2 steps at batch 32
+CLI_REL_TOL = 1e-4     # eval metrics, general kernels vs plain path (fp32)
+INTERMEDIATES_BATCH = 8
+EMBED_RECOVERY = {"embeddings.patch_embeddings.projection.weight",
+                  "patch_recovery.projection.weight", "patch_recovery.projection.bias",
+                  "patch_recovery.mixup.weight"}
+
+
+def phase_remat(pt, wa, mlp_op, model, card):
+    """Gradient checkpointing on the card: ScOT-B bf16 b32 with hidden
+    dropout and drop-path 0.1 (masks from a CUDA generator) on the weights
+    of the model phase. Under each ``remat`` mode the loss and gradients of
+    one step and the generator's end state, against the step without
+    checkpointing (same weights, batch and generator seed): loss equal,
+    gradient relative L2 <= REMAT_REL_TOL, generator state equal; launches
+    (True and "save_dots" run every block's forward kernels twice); then a
+    full train step (AdamW) per mode, timed in two rounds (modes in order,
+    then reversed), with its peak memory. The peak under True must be below
+    the peak without checkpointing."""
+    cfg = model.config.replace(**REMAT_RATES)
+    m = pt.ScOT(cfg, dtype=torch.bfloat16)
+    m.load_state_dict(model.state_dict(), strict=True)
+    m = m.to("cuda").train()
+    batch = train_batch()
+    torch.cuda.synchronize()
+    live_gib = torch.cuda.memory_allocated() / 2 ** 30
+
+    def grads(mode):
+        m.remat = mode
+        m.zero_grad(set_to_none=True)
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        reset_counts(wa, mlp_op)
+        pred = pt.apply_pixel_mask(m(batch["pixel_values"], batch["time"], generator=gen),
+                                   batch["labels"], batch["pixel_mask"])
+        loss = pt.scot_loss(pred, batch["labels"], cfg)
+        loss.backward()
+        torch.cuda.synchronize()
+        counts = read_counts(wa, mlp_op)
+        vec = torch.cat([p.grad.float().flatten() for p in m.parameters()])
+        return float(loss.detach()), vec, gen.get_state(), counts
+
+    loss0, vec0, state0, _ = grads(False)
+    per_step = block_launches(m, wa, mlp_op, backward=True)
+    rows, ok = {}, True
+    for mode in REMAT_MODES:
+        loss, vec, state, counts = grads(mode)
+        want = dict(per_step)
+        if mode in (True, "save_dots"):
+            for name in want:
+                if name.endswith("_fwd"):
+                    want[name] *= 2
+        rel = float((vec - vec0).norm() / vec0.norm())
+        row = {"loss": loss, "loss_equal": loss == loss0, "grad_rel_l2": rel,
+               "grads_bit_identical": bool(torch.equal(vec, vec0)),
+               "generator_state_equal": bool(torch.equal(state, state0)),
+               "launches": counts, "launches_expected": want}
+        row["ok"] = (row["loss_equal"] and rel <= REMAT_REL_TOL and row["generator_state_equal"]
+                     and counts == want and math.isfinite(loss))
+        ok = ok and row["ok"]
+        rows[str(mode)] = row
+        del vec
+    del vec0
+    m.zero_grad(set_to_none=True)
+    opt, sched = pt.build_optimizer(m, learning_rate=1e-4, total_steps=10_000, weight_decay=1e-6,
+                                    lr_scheduler_type="cosine", warmup_ratio=0.0)
+    for order in (REMAT_MODES, REMAT_MODES[::-1]):
+        for mode in order:
+            m.remat = mode
+            gen = torch.Generator(device="cuda").manual_seed(12)
+
+            def step():
+                return pt.train_step(m, opt, sched, batch, max_grad_norm=5.0, generator=gen)
+
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            ms = host_ms(step, iters=3, warmup=1)
+            row = rows[str(mode)]
+            row.setdefault("train_step_ms", []).append(ms)
+            row["peak_memory_gib"] = max(row.get("peak_memory_gib", 0.0),
+                                         torch.cuda.max_memory_allocated() / 2 ** 30)
+    remat_counts = rows["True"]["launches"]
+    ok = ok and rows["True"]["peak_memory_gib"] < rows["False"]["peak_memory_gib"]
+    emit({"phase": "remat", "model": "ScOT-B 128x128 c4 bf16 conditioned, hidden dropout 0.1, "
+                                     "drop-path 0.1", "batch": BATCH,
+          "weights": "those of the model phase", "generator": "CUDA, seed 11 (timed: 12)",
+          "tol": REMAT_REL_TOL, "modes": rows,
+          "memory_allocated_before_gib": live_gib,
+          "timing": "train step (forward, backward, clip, AdamW) host ms, median of 3 after 1 "
+                    "warm-up, two rounds: modes in order, then reversed",
+          "ok": ok, "card": card})
+    if not ok:
+        raise SystemExit("remat phase failed")
+    del m, opt, sched
+    torch.cuda.empty_cache()
+    return remat_counts
+
+
+def write_poisson_gauss(path, n_train):
+    """A sparse Poisson-Gauss dataset in the ``.npy`` directory format:
+    ``source`` and ``solution`` (20000, 128, 128) f32, rows written for the
+    train split [0, n_train), val and test (the last 360): a blocky random
+    source and a smoothed, scaled copy of it as the solution."""
+    rng = np.random.default_rng(1)
+    rows = list(range(n_train)) + list(range(20000 - 360, 20000))
+
+    def fill(arrays):
+        for i in rows:
+            src = np.kron(rng.normal(size=(16, 16)), np.ones((8, 8))).astype(np.float32) * 4.7
+            arrays["source"][i] = src
+            arrays["solution"][i] = 0.005 * (src + np.roll(src, 3, 0) + np.roll(src, 3, 1))
+        return len(rows)
+
+    return _write_npy_dir(path, {"source": (20000, 128, 128), "solution": (20000, 128, 128)},
+                          fill)
+
+
+def write_ns_gauss(path, times):
+    """A sparse NS-Gauss dataset in the ``.npy`` directory format:
+    ``velocity`` (20000, 21, 2, 128, 128) f32, its test split (the last 240
+    trajectories) written at ``times``: the input of ``eval_resolutions``,
+    whose datasets downsample spectrally (the compressible ones do not)."""
+    rng = np.random.default_rng(2)
+
+    def fill(arrays):
+        v = arrays["velocity"]
+        for i in range(20000 - 240, 20000):
+            base = np.kron(rng.normal(size=(2, 16, 16)), np.ones((8, 8))).astype(np.float32)
+            for tt in times:
+                v[i, tt] = base * np.float32(np.exp(-0.03 * tt))
+        return 240 * len(times)
+
+    return _write_npy_dir(path, {"velocity": (20000, 21, 2, 128, 128)}, fill)
+
+
+def _kernels_ran(counts, names):
+    return all(counts[n] > 0 for n in names)
+
+
+WGMMA_PATH = ("window_attention_fwd", "window_attention_bwd", "fused_mlp_fwd", "fused_mlp_bwd")
+GENERAL_FWD = ("window_attention_general_fwd", "mlp_general_fwd")
+
+
+def phase_cli_train(pt, wa, mlp_op, card, root):
+    """``python -m poseidon_tpu_torch.train`` in process (``main(argv)``,
+    a JSON config): ScOT-B (``model_name`` "B"), bf16 compute,
+    ``attention_impl`` "pallas", two epochs of three steps at batch 32 on
+    a synthetic CE-Gauss file (times 0 and 2, ``--max_num_train_time_steps
+    1 --train_time_step_size 2``), ``save_steps`` 2, evaluation each epoch.
+    Checks the run directory (``logs.jsonl``, ``checkpoint-*``, ``best/``,
+    ``model/``, ``config.json``), the launches (every step's and every
+    evaluation forward's, exactly), finite epoch train losses, the second
+    under the first. Then ``save_pretrained`` of
+    the trained model, and the fine-tune onto a sparse Poisson-Gauss
+    directory (1 channel in and out, no time): the surgery
+    (``from_pretrained(config=...)``) replaces exactly the embedding and
+    recovery tensors among the checkpoint's, and the plain norms the
+    unconditioned model has in place of the conditional ones; every other
+    tensor equals the export bit for bit before the first step; the CLI
+    with ``--replace_embedding_recovery`` reports the same list and trains
+    through the kernels; without the flag it fails on the channel
+    mismatch. W&B is disabled: no run name is given."""
+    import contextlib
+    import io
+
+    from poseidon_tpu_torch import hub
+    from poseidon_tpu_torch import train as ptrain
+
+    os.environ["WANDB_MODE"] = "disabled"
+    os.environ.pop("WANDB_SWEEP_ID", None)
+    data = os.path.join(root, "data")
+    os.makedirs(data)
+    t0 = time.perf_counter()
+    write_ce_gauss(os.path.join(data, "CE-Gauss.nc"), train_traj=CLI_TRAIN_TRAJ,
+                   train_times=(0, 2), val_times=(0, 2), test_times=(0, 2, 4))
+    write_poisson_gauss(os.path.join(data, "Poisson-Gauss.nc"), CLI_FINETUNE_TRAJ)
+    data_s = time.perf_counter() - t0
+    ckpt = os.path.join(root, "ckpt")
+    config = {"dataset": "fluids.compressible.Gaussians", "num_trajectories": CLI_TRAIN_TRAJ,
+              "model_name": "B", "lr": 5e-4, "weight_decay": 1e-6, "lr_scheduler": "cosine",
+              "warmup_ratio": 0.0, "num_epochs": 2, "batch_size": BATCH, "max_grad_norm": 5.0,
+              "attention_impl": "pallas", "compute_dtype": "bfloat16", "save_steps": 2}
+    argv = ["--config", json.dumps(config), "--json_config", "--data_path", data,
+            "--checkpoint_path", ckpt, "--wandb_project_name", "smoke",
+            "--max_num_train_time_steps", "1", "--train_time_step_size", "2"]
+    reset_counts(wa, mlp_op)
+    t0 = time.perf_counter()
+    trainer = ptrain.main(argv)
+    torch.cuda.synchronize()
+    train_wall = time.perf_counter() - t0
+    counts = read_counts(wa, mlp_op)
+    run_dir = os.path.join(ckpt, "smoke", os.listdir(os.path.join(ckpt, "smoke"))[0])
+    listing = sorted(os.listdir(run_dir))
+    with open(os.path.join(run_dir, "logs.jsonl")) as fh:
+        logs = [json.loads(line) for line in fh]
+    epochs = [r for r in logs if "train_time_s" in r]
+    epoch_losses = [r["train_loss"] for r in epochs]
+    steps = trainer.step
+    n_eval = len(epochs) * math.ceil(len(trainer.eval_dataset) / BATCH)
+    per_step = block_launches(trainer.model, wa, mlp_op, backward=True)
+    per_fwd = block_launches(trainer.model, wa, mlp_op)
+    want = {k: steps * per_step[k] + n_eval * per_fwd[k] for k in per_step}
+    layout_ok = (all(x in listing for x in ("logs.jsonl", "best", "model", "config.json"))
+                 and any(x.startswith("checkpoint-") for x in listing))
+    train_ok = (layout_ok and counts == want and _kernels_ran(counts, WGMMA_PATH)
+                and steps == 2 * 3 and len(epoch_losses) == 2
+                and all(math.isfinite(v) for v in epoch_losses)
+                and epoch_losses[1] < epoch_losses[0])
+    export = os.path.join(root, "export")
+    t0 = time.perf_counter()
+    hub.save_pretrained(trainer.model, export)
+    export_s = time.perf_counter() - t0
+    del trainer
+    torch.cuda.empty_cache()
+
+    # The fine-tune: the surgery as the CLI does it, checked before any step.
+    ft_config = {"dataset": "elliptic.poisson.Gaussians", "num_trajectories": CLI_FINETUNE_TRAJ,
+                 "model_name": "B", "lr": 5e-4, "lr_embedding_recovery": 1e-3,
+                 "weight_decay": 1e-6, "num_epochs": 1, "batch_size": BATCH,
+                 "max_grad_norm": 5.0, "attention_impl": "pallas", "compute_dtype": "bfloat16"}
+    ft_ds = pt.get_dataset(ft_config["dataset"], which="train",
+                           num_trajectories=CLI_FINETUNE_TRAJ, data_path=data)
+    mcfg = ptrain.build_model_config({**ft_config, **pt.MODEL_MAP["B"]}, ft_ds,
+                                     ptrain.is_time_involved(ft_ds))
+    model, info = pt.from_pretrained(export, config=mcfg, ignore_mismatched_sizes=True,
+                                     device="cuda", dtype=torch.bfloat16,
+                                     output_loading_info=True)
+    exported = hub.load_state_dict(export)
+    replaced = set(info["replaced"])
+    mismatched = {k for k in replaced if k in exported}
+    absent = replaced - mismatched
+    sd = model.state_dict()
+    kept_equal = all(torch.equal(v.cpu(), exported[k]) for k, v in sd.items() if k not in replaced)
+    surgery_ok = (mismatched == EMBED_RECOVERY and bool(absent)
+                  and all(k not in exported and (".norm." in k or "layernorm" in k)
+                          for k in absent)
+                  and kept_equal and not mcfg.use_conditioning)
+    del model, sd
+    torch.cuda.empty_cache()
+    ft_argv = ["--config", json.dumps(ft_config), "--json_config", "--data_path", data,
+               "--checkpoint_path", os.path.join(root, "ft"), "--wandb_project_name", "smoke",
+               "--finetune_from", export]
+    reset_counts(wa, mlp_op)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        ft = ptrain.main(ft_argv + ["--replace_embedding_recovery"])
+    torch.cuda.synchronize()
+    ft_wall = time.perf_counter() - t0
+    ft_counts = read_counts(wa, mlp_op)
+    printed = next((ln for ln in out.getvalue().splitlines() if ln.startswith("Re-initialized")),
+                   "")
+    printed_names = set(printed.split(": ", 1)[1].split(", ")) if ": " in printed else set()
+    ft_logs = [json.loads(line) for line in open(os.path.join(ft.args.output_dir, "logs.jsonl"))]
+    ft_losses = [r["train_loss"] for r in ft_logs if "train_time_s" in r]
+    test_loss = ft_logs[-1].get("test/loss")
+    ft_ok = (printed_names == replaced and ft.config.num_channels == 1
+             and _kernels_ran(ft_counts, WGMMA_PATH) and ft.step == 2 and len(ft_losses) == 1
+             and all(math.isfinite(v) for v in ft_losses)
+             and test_loss is not None and math.isfinite(test_loss))
+    del ft
+    torch.cuda.empty_cache()
+    try:
+        ptrain.main(ft_argv)
+        no_flag_error = None
+    except ValueError as e:
+        no_flag_error = str(e)
+    no_flag_ok = no_flag_error is not None and "replace_embedding_recovery" in no_flag_error
+    ok = train_ok and surgery_ok and ft_ok and no_flag_ok
+    emit({"phase": "cli_train", "data": "synthetic CE-Gauss (train 32 trajectories at t 0, 2; "
+                                        "val 120; test 240 at t 0, 2, 4) and Poisson-Gauss "
+                                        "(64 train rows), sparse .npy directories",
+          "data_write_s": data_s, "config": config, "run_dir_listing": listing,
+          "steps": steps, "evaluation_forwards": n_eval, "launches": counts,
+          "launches_expected": want, "epoch_train_loss": epoch_losses, "wall_s": train_wall,
+          "train_time_s": [r["train_time_s"] for r in epochs],
+          "train_steps_per_s": steps / sum(r["train_time_s"] for r in epochs),
+          "eval_loss": [r.get("eval_loss") for r in epochs], "export_s": export_s,
+          "finetune": {"config": ft_config, "replaced_mismatched": sorted(mismatched),
+                       "replaced_absent_from_checkpoint": len(absent),
+                       "absent_examples": sorted(absent)[:4],
+                       "kept_tensors_equal_to_export": kept_equal,
+                       "cli_reported_same_list": printed_names == replaced,
+                       "launches": ft_counts, "epoch_train_loss": ft_losses,
+                       "test_loss": test_loss,
+                       "wall_s": ft_wall, "no_flag_error": no_flag_error},
+          "ok": ok, "card": card})
+    if not ok:
+        raise SystemExit("cli_train phase failed")
+    return run_dir, data, counts, ft_counts
+
+
+def _csv_rows(path):
+    import csv
+
+    with open(path) as fh:
+        return list(csv.DictReader(fh))
+
+
+def phase_cli_inference(pt, wa, mlp_op, card, run_dir, data, root):
+    """``python -m poseidon_tpu_torch.inference`` in process on the trained
+    run directory, fp32 (every attention and MLP call on the general
+    kernels: 64 and 32 a forward, launches counted exactly): ``eval``
+    direct and with ``--ar_steps 2`` on the CE-Gauss test split (240
+    samples, t 0 -> 4), ``save_samples``, ``eval_accumulation_error``
+    (steps at t 2 and 4) and ``eval_resolutions`` at 64 and 128 on an
+    NS-Gauss test split (same channels; its dataset downsamples). The
+    ``eval`` metrics are held to a plain-path run of the same mode (the run
+    directory's weights under a config with ``attention_impl`` "xla") within
+    relative CLI_REL_TOL; wall s and samples/s of ``eval``."""
+    from poseidon_tpu_torch import inference as pinf
+
+    write_ns_gauss(os.path.join(data, "NS-Gauss.nc"), (0, 4))
+    plain_dir = os.path.join(root, "plain")
+    os.makedirs(plain_dir)
+    os.symlink(os.path.join(run_dir, "model"), os.path.join(plain_dir, "model"))
+    with open(os.path.join(run_dir, "config.json")) as fh:
+        cfg = json.load(fh)
+    with open(os.path.join(plain_dir, "config.json"), "w") as fh:
+        json.dump({**cfg, "attention_impl": "xla"}, fh)
+    out = os.path.join(root, "inference")
+    ce = "fluids.compressible.Gaussians"
+    n_test = 240
+    fwd = math.ceil(n_test / BATCH)
+
+    def run(mode, file, *extra, model=run_dir, dataset=ce):
+        argv = ["--mode", mode, "--model_path", model, "--data_path", data, "--dataset", dataset,
+                "--file", os.path.join(out, file), "--initial_time", "0", "--final_time", "4",
+                "--batch_size", str(BATCH), *extra]
+        reset_counts(wa, mlp_op)
+        t0 = time.perf_counter()
+        pinf.main(argv)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, read_counts(wa, mlp_op)
+
+    def general(n_forwards):
+        return launches(window_attention_general_fwd=64 * n_forwards,
+                        mlp_general_fwd=32 * n_forwards)
+
+    rows = {}
+    eval_s, c = run("eval", "eval.csv")
+    rows["eval"] = {"wall_s": eval_s, "samples_per_s": n_test / eval_s, "launches": c,
+                    "launches_ok": c == general(fwd)}
+    plain_s, c = run("eval", "eval_plain.csv", model=plain_dir)
+    rows["eval_plain_path"] = {"wall_s": plain_s, "launches": c, "launches_ok": c == launches()}
+    got, want = _csv_rows(os.path.join(out, "eval.csv"))[0], \
+        _csv_rows(os.path.join(out, "eval_plain.csv"))[0]
+    metric_keys = [k for k in want if k not in ("model", "dataset", "initial_time",
+                                                "final_time", "ar_steps")]
+    rel = {k: abs(float(got[k]) - float(want[k])) / max(abs(float(want[k])), 1e-30)
+           for k in metric_keys}
+    rows["eval"]["metrics"] = {k: float(got[k]) for k in metric_keys}
+    rows["eval"]["max_rel_vs_plain_path"] = max(rel.values())
+    s, c = run("eval", "eval_ar.csv", "--ar_steps", "2")
+    rows["eval_ar2"] = {"wall_s": s, "launches": c, "launches_ok": c == general(2 * fwd),
+                        "loss": float(_csv_rows(os.path.join(out, "eval_ar.csv"))[0]["loss"])}
+    s, c = run("save_samples", "samples", "--num_samples", "4", "--ar_steps", "2")
+    shapes = {n: list(np.load(os.path.join(out, "samples", f"{n}.npy")).shape)
+              for n in ("inputs", "predictions", "labels")}
+    rows["save_samples"] = {"wall_s": s, "launches": c, "launches_ok": c == general(2 * fwd),
+                            "shapes": shapes,
+                            "shapes_ok": all(v == [4, 4, 128, 128] for v in shapes.values())}
+    s, c = run("eval_accumulation_error", "accumulation.csv", "--time_step_size", "2")
+    acc = _csv_rows(os.path.join(out, "accumulation.csv"))
+    rows["eval_accumulation_error"] = {
+        "wall_s": s, "launches": c, "launches_ok": c == general(2 * fwd),
+        "rows": len(acc), "final_times": [int(r["final_time"]) for r in acc],
+        "mean_relative_l1_error": [float(r["mean_relative_l1_error"]) for r in acc]}
+    s, c = run("eval_resolutions", "resolutions.csv", "--resolutions", "64", "128",
+               dataset="fluids.incompressible.Gaussians")
+    res = _csv_rows(os.path.join(out, "resolutions.csv"))
+    rows["eval_resolutions"] = {
+        "wall_s": s, "launches": c, "launches_ok": c == general(2 * fwd),
+        "resolutions": [int(r["resolution"]) for r in res],
+        "loss": [float(r["loss"]) for r in res]}
+    ok = (all(r.get("launches_ok", True) for r in rows.values())
+          and rows["eval"]["max_rel_vs_plain_path"] <= CLI_REL_TOL
+          and all(math.isfinite(v) for v in rows["eval"]["metrics"].values())
+          and math.isfinite(rows["eval_ar2"]["loss"]) and rows["save_samples"]["shapes_ok"]
+          and rows["eval_accumulation_error"]["final_times"] == [2, 4]
+          and rows["eval_resolutions"]["resolutions"] == [64, 128]
+          and all(math.isfinite(v) for v in rows["eval_resolutions"]["loss"]))
+    emit({"phase": "cli_inference", "model": "the cli_train run directory, fp32 compute",
+          "test_samples": n_test, "batch": BATCH, "tol": CLI_REL_TOL, "modes": rows,
+          "ok": ok, "card": card})
+    if not ok:
+        raise SystemExit("cli_inference phase failed")
+    return rows["eval"]["launches"]
+
+
+def phase_intermediates(pt, wa, mlp_op, attn_mod, card):
+    """``forward_with_intermediates`` on ScOT-B fp32 at batch 8 (weights of
+    the model phase's recipe): the prediction against the kernel-path
+    forward (relative L2 <= FP32_REL_TOL), 8 hidden states of the stages'
+    shapes, 64 attention tensors (N*nW, heads, T, T) whose rows sum to 1,
+    no kernel launched during the call, and the model unchanged after it
+    (its ``attention_impl``, the launches and the output of its next
+    forward); then ``rollout_with_intermediates`` with 2 steps at batch 2,
+    every tensor stacked on axis 1."""
+    cfg = pt.make_config("B", image_size=128, num_channels=4, num_out_channels=4,
+                         channel_slice_list=(0, 1, 3, 4), use_conditioning=True,
+                         attention_impl="pallas")
+    model = pt.build_model(cfg, device="cuda", dtype=torch.float32, seed=0)
+    perturb_attention(model, attn_mod.WindowAttention, torch.Generator().manual_seed(3))
+    gen = torch.Generator().manual_seed(2)
+    b = INTERMEDIATES_BATCH
+    x = torch.randn(b, 4, 128, 128, generator=gen).to("cuda")
+    t = torch.full((b,), 0.5, device="cuda")
+    with torch.no_grad():
+        reset_counts(wa, mlp_op)
+        ref = model(x, t)
+        torch.cuda.synchronize()
+        before = read_counts(wa, mlp_op)
+        reset_counts(wa, mlp_op)
+        t0 = time.perf_counter()
+        pred, hs, att = pt.forward_with_intermediates(model, x, t)
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+        during = read_counts(wa, mlp_op)
+        reset_counts(wa, mlp_op)
+        again = model(x, t)
+        torch.cuda.synchronize()
+        after = read_counts(wa, mlp_op)
+    rel = float((pred - ref).norm() / ref.norm())
+    want_hs = [(b, (32 >> i) ** 2, 96 << i) for i in range(4)]
+    want_hs += want_hs[::-1]
+    hs_shapes = [tuple(h.shape) for h in hs]
+    att_shapes = sorted({tuple(a.shape) for a in att})
+    n_att = len(att)
+    row_err = max(float((a.sum(-1) - 1.0).abs().max()) for a in att)
+    att_bytes = sum(a.numel() * a.element_size() for a in att)
+    del hs, att
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        r_pred, r_hs, r_att = pt.rollout_with_intermediates(model, x[:2], t[:2], 2)
+    roll = {"predictions": list(r_pred.shape), "hidden_states": len(r_hs),
+            "attentions": len(r_att), "hidden_state_0": list(r_hs[0].shape),
+            "attention_0": list(r_att[0].shape)}
+    roll_ok = (roll["predictions"] == [2, 2, 4, 128, 128] and len(r_hs) == 8 and len(r_att) == 64
+               and all(h.shape[:2] == (2, 2) for h in r_hs)
+               and all(a.shape[1] == 2 for a in r_att) and bool(torch.isfinite(r_pred).all()))
+    del r_pred, r_hs, r_att
+    ok = (rel <= FP32_REL_TOL and hs_shapes == want_hs and n_att == 64 and row_err <= 1e-5
+          and during == launches() and before == after
+          and before == launches(window_attention_general_fwd=64, mlp_general_fwd=32)
+          and model.config.attention_impl == "pallas" and bool(torch.equal(again, ref))
+          and roll_ok)
+    emit({"phase": "intermediates", "model": "ScOT-B 128x128 c4 fp32 conditioned", "batch": b,
+          "rel_l2_vs_kernel_path": rel, "tol": FP32_REL_TOL, "hidden_state_shapes": hs_shapes,
+          "attentions": n_att, "attention_shapes": att_shapes, "max_row_sum_error": row_err,
+          "attention_gib": att_bytes / 2 ** 30, "call_s": call_s,
+          "launches_before": before, "launches_during": during, "launches_after": after,
+          "rollout_with_intermediates": roll, "ok": ok, "card": card})
+    if not ok:
+        raise SystemExit("intermediates phase failed")
+    del model
+    torch.cuda.empty_cache()
+
+
 def kernels_line(results, bwd_results, cln_results, op_results, per_forward, rollout_counts,
                  step_counts, tail_forward, tail_counts, op_counts, general, f32_counts,
-                 odd_counts, trainer_counts, trainer_steps, b32_counts):
+                 odd_counts, trainer_counts, trainer_steps, b32_counts, paths):
     """One entry per hand-written kernel. ``launches`` is the count from the
     path that runs it: the train step (the first four; with the Trainer's
     steps beside it), the fused-tail train step (the tail's two), the op's
     forward + backward path (the separate-q/k/v attention's two), the fp32
     ScOT-B train step (the general kernels, with the fp32 ScOT-T and the
-    mlp_ratio-3, D = 24 ScOT-T steps' counts beside it)."""
+    mlp_ratio-3, D = 24 ScOT-T steps' counts beside it). ``paths`` adds,
+    to every entry, its launches in each later path (``<path>_launches``:
+    the remat step, the train CLI, the fine-tune, the inference CLI's
+    ``eval``)."""
     def entry(name, source, replaces, rows, shape_prefix, counts, **extra):
         row = next(r for r in rows if r["model"] == "B" and r["shape"].startswith(shape_prefix))
         b_rows = [r for r in rows if r["model"] == "B"]
@@ -1711,7 +2212,7 @@ def kernels_line(results, bwd_results, cln_results, op_results, per_forward, rol
 
     csrc = "poseidon_tpu_torch/csrc/"
     op_path = "fused_window_attention forward + backward, every ScOT-B/L/T shape and T=49"
-    return {"kernels": [
+    return _with_paths({"kernels": [
         entry("window_attention_fwd", csrc + "window_attention.cu",
               "poseidon_tpu/ops/window_attention.py:131", results["attention"], "stage0_shifted",
               step_counts, **main_path("window_attention_fwd")),
@@ -1746,7 +2247,14 @@ def kernels_line(results, bwd_results, cln_results, op_results, per_forward, rol
         general_entry("mlp_general_bwd", csrc + "mlp_general.cu", "poseidon_tpu/ops/mlp.py:157",
                       general["mlp_bwd"], "stage0",
                       also_replaces="poseidon_tpu/ops/mlp.py:114, poseidon_tpu/ops/mlp.py:130"),
-    ]}
+    ]}, paths)
+
+
+def _with_paths(line, paths):
+    for entry in line["kernels"]:
+        for path, counts in paths.items():
+            entry[f"{path}_launches"] = counts[entry["name"]]
+    return line
 
 
 def main() -> int:
@@ -1775,7 +2283,7 @@ def main() -> int:
                                                        fused_tail=True)
     phase_train_profile(tail_step, tail_step_ms, card, fused_tail=True)
     phase_tail_vs_unfused(model, tail_model, x, t, step, tail_step, card)
-    del tail_model, tail_step
+    del tail_model, tail_step, step
     # ScOT-T (embed 48: D = 16 at every stage): forward and train step.
     t_model, *_ = phase_model(pt, wa_mod, mlp_op, attn_mod, card, size="T")
     phase_train(pt, wa_mod, mlp_op, t_model, card, size="T")
@@ -1798,9 +2306,22 @@ def main() -> int:
     b32_counts = phase_fp32_b(pt, wa_mod, mlp_op, attn_mod, card)
     # The Trainer.
     trainer_counts, trainer_steps = phase_trainer(pt, wa_mod, mlp_op, card, step_ms)
+    # Gradient checkpointing, the two command lines, intermediates.
+    remat_counts = phase_remat(pt, wa_mod, mlp_op, model, card)
+    del model
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        run_dir, data, cli_counts, ft_counts = phase_cli_train(pt, wa_mod, mlp_op, card, root)
+        inference_counts = phase_cli_inference(pt, wa_mod, mlp_op, card, run_dir, data, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    phase_intermediates(pt, wa_mod, mlp_op, attn_mod, card)
+    paths = {"remat_step": remat_counts, "cli_train": cli_counts, "cli_finetune": ft_counts,
+             "cli_inference_eval": inference_counts}
     emit(kernels_line(results, bwd_results, cln_results, op_results, per_forward,
                       rollout_counts, step_counts, tail_forward, tail_counts, op_counts, general,
-                      f32_counts, odd_counts, trainer_counts, trainer_steps, b32_counts))
+                      f32_counts, odd_counts, trainer_counts, trainer_steps, b32_counts, paths))
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -6,20 +6,26 @@ logic of ``poseidon_tpu.hub.export_torch_state_dict`` and
 ``unroll_scanned_params``, in numpy) and then
 ``model.load_state_dict(sd, strict=True)``. :func:`from_pretrained` loads a
 reference-format checkpoint directory (``config.json`` plus
-``model.safetensors`` or ``pytorch_model.bin``).
+``model.safetensors`` or ``pytorch_model.bin``), strictly or, given a new
+config, by the fine-tune surgery of the reference
+(``ignore_mismatched_sizes``); :func:`save_pretrained` writes one.
+Safetensors files are read and written by the port's own
+``utils/safetensors_io.py``, so no package beyond torch is needed; the Hub
+(``huggingface_hub``) is imported only to fetch or push a repository.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Dict, Mapping, Optional
+from typing import Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from .config import ScOTConfig
-from .models.scot import ScOT
+from .models.scot import ScOT, init_weights
+from .utils import safetensors_io
 from .utils.device import resolve_device
 
 # ---------------------------------------------------------------------------
@@ -177,23 +183,126 @@ def load_state_dict(model_dir: str) -> Dict[str, torch.Tensor]:
     st_path = os.path.join(model_dir, "model.safetensors")
     bin_path = os.path.join(model_dir, "pytorch_model.bin")
     if os.path.exists(st_path):
-        from safetensors.torch import load_file
-
-        return load_file(st_path)
+        return safetensors_io.load_file(st_path)
     if os.path.exists(bin_path):
         return torch.load(bin_path, map_location="cpu", weights_only=True)
     raise FileNotFoundError(f"No model.safetensors or pytorch_model.bin in {model_dir}")
 
 
-def from_pretrained(model_dir: str, device=None, dtype: torch.dtype = torch.float32) -> ScOT:
-    """Load a reference-format checkpoint directory into a ScOT on
-    ``device`` (default CUDA; raises when CUDA is absent and the caller did
-    not ask for the CPU), with compute dtype ``dtype``, in eval mode. Every
-    tensor must match (``strict=True``); the mask token is built when the
-    checkpoint holds one."""
+def resolve_model_path(model_dir_or_repo_id: str) -> str:
+    """A local checkpoint directory for ``model_dir_or_repo_id``: the path
+    itself when it is a directory, else a Hub repository id (e.g.
+    ``"camlab-ethz/Poseidon-B"``) fetched by
+    ``huggingface_hub.snapshot_download`` into its cache. Raises
+    ``FileNotFoundError`` naming the path when neither works."""
+    if os.path.isdir(model_dir_or_repo_id):
+        return model_dir_or_repo_id
+    try:
+        from huggingface_hub import snapshot_download
+    except ImportError as e:
+        raise FileNotFoundError(
+            f"{model_dir_or_repo_id!r} is not a local directory and huggingface_hub "
+            "is not installed to download it") from e
+    try:
+        return snapshot_download(
+            repo_id=model_dir_or_repo_id,
+            allow_patterns=["config.json", "model.safetensors", "pytorch_model.bin"])
+    except Exception as e:
+        raise FileNotFoundError(
+            f"{model_dir_or_repo_id!r} is not a local checkpoint directory and "
+            f"downloading it from the Hub failed ({type(e).__name__}: {e}). Offline, "
+            "download it beforehand or pass a local path.") from e
+
+
+def push_to_hub(repo_id: str, export_dir: str) -> bool:
+    """Upload a :func:`save_pretrained` directory to the Hub repository
+    ``repo_id``. Returns True on success; the local directory stays either
+    way."""
+    try:
+        from huggingface_hub import HfApi
+
+        api = HfApi()
+        api.create_repo(repo_id=repo_id, exist_ok=True)
+        api.upload_folder(repo_id=repo_id, folder_path=export_dir)
+        return True
+    except Exception as e:
+        print(f"Hub push to {repo_id!r} failed ({type(e).__name__}: {e}); "
+              f"the checkpoint stays at {export_dir}")
+        return False
+
+
+def save_pretrained(model: ScOT, save_dir: str) -> None:
+    """Write a reference-format checkpoint directory: ``model.safetensors``
+    (the state dict, BatchNorm running statistics included, fp32 on the
+    CPU) and ``config.json`` with ``"model_type": "swinv2"``, the layout
+    the reference's ``ScOT.from_pretrained`` and the JAX package's
+    ``poseidon_tpu.hub.from_pretrained`` read."""
+    os.makedirs(save_dir, exist_ok=True)
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    sd = {k: v.float() if v.is_floating_point() else v for k, v in sd.items()}
+    safetensors_io.save_file(sd, os.path.join(save_dir, "model.safetensors"))
+    d = model.config.to_dict()
+    d["model_type"] = "swinv2"
+    with open(os.path.join(save_dir, "config.json"), "w") as f:
+        json.dump(d, f, indent=2)
+
+
+def _merge_with_init(model: torch.nn.Module,
+                     loaded: Mapping[str, torch.Tensor]) -> List[str]:
+    """Copy every tensor of ``loaded`` whose name and shape fit ``model``'s
+    state dict into it; the others keep the model's values. Returns the
+    names of ``model``'s state dict that were not loaded (sorted); tensors
+    of ``loaded`` the model lacks are ignored (as ``_merge_with_init`` of the
+    JAX hub)."""
+    own = model.state_dict()
+    merged, replaced = {}, []
+    for name, val in own.items():
+        src = loaded.get(name)
+        if src is not None and tuple(src.shape) == tuple(val.shape):
+            merged[name] = src.to(val.dtype)
+        else:
+            replaced.append(name)
+            merged[name] = val
+    model.load_state_dict(merged, strict=True)
+    return sorted(replaced)
+
+
+def from_pretrained(model_dir: str, config: Optional[ScOTConfig] = None,
+                    ignore_mismatched_sizes: bool = False, device=None,
+                    dtype: torch.dtype = torch.float32, output_loading_info: bool = False
+                    ) -> Union[ScOT, Tuple[ScOT, Dict[str, List[str]]]]:
+    """Load a reference-format checkpoint (a local directory, or a Hub
+    repository id: :func:`resolve_model_path`) into a ScOT on ``device``
+    (default CUDA; raises when CUDA is absent and the caller did not ask
+    for the CPU), with compute dtype ``dtype``, in eval mode.
+
+    With ``config=None`` the checkpoint's own ``config.json`` is used and
+    every tensor must match (``strict=True``). With a ``config`` (the
+    reference's ``ScOT.from_pretrained(path, config=new_config,
+    ignore_mismatched_sizes=True)``, the fine-tune surgery) the model is
+    built from it with the seeded init of :func:`build_model`, each
+    checkpoint tensor whose name and shape fit is copied over it, and the
+    rest keep their init: with other channels, the patch embedding and
+    recovery tensors. Those are listed and raise ``ValueError`` unless
+    ``ignore_mismatched_sizes``. ``output_loading_info=True`` also returns
+    ``{"replaced": [names]}`` (the JAX function's third return value). The
+    mask token is built when the checkpoint holds one."""
     dev = resolve_device(device)
-    cfg = load_config(model_dir)
+    model_dir = resolve_model_path(model_dir)
     sd = load_state_dict(model_dir)
-    model = ScOT(cfg, dtype=dtype, use_mask_token="embeddings.mask_token" in sd)
-    model.load_state_dict(sd, strict=True)
-    return model.to(dev).eval()
+    use_mask_token = "embeddings.mask_token" in sd
+    if config is None:
+        model = ScOT(load_config(model_dir), dtype=dtype, use_mask_token=use_mask_token)
+        model.load_state_dict(sd, strict=True)
+        replaced: List[str] = []
+    else:
+        model = ScOT(config, dtype=dtype, use_mask_token=use_mask_token)
+        init_weights(model, torch.Generator().manual_seed(0))
+        replaced = _merge_with_init(model, sd)
+        if replaced and not ignore_mismatched_sizes:
+            raise ValueError("Checkpoint/config mismatch for: " + ", ".join(replaced)
+                             + " - pass ignore_mismatched_sizes=True to re-initialize them.")
+    model = model.to(dev).eval()
+    if output_loading_info:
+        return model, {"replaced": replaced}
+    return model

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -133,7 +133,10 @@ class WindowAttention(nn.Module):
     attention probabilities and the output projection take dropout
     (``attn_drop``, ``proj_drop``, masks from the caller's generator); the
     kernel path has no probabilities to drop, so while attention dropout is
-    active the module takes the plain path, as the JAX module does.
+    active the module takes the plain path, as the JAX module does. While ``capture`` holds a list
+    (``models/scot.py::forward_with_intermediates`` sets it for one call),
+    the module takes the plain path and appends its post-softmax,
+    post-dropout probabilities (N, heads, T, T) to it.
     """
 
     def __init__(self, dim: int, num_heads: int, window_size: int,
@@ -152,6 +155,7 @@ class WindowAttention(nn.Module):
         self.proj_drop = proj_drop
         self.self = _SelfAttention(dim, num_heads, window_size, qkv_bias)
         self.output = _SelfOutput(dim)
+        self.capture: Optional[List[torch.Tensor]] = None
 
     def position_bias(self) -> torch.Tensor:
         """CPB MLP over the static log-coordinate table, gathered to
@@ -167,8 +171,10 @@ class WindowAttention(nn.Module):
         return torch.exp(torch.clamp(self.self.logit_scale, max=math.log(1.0 / 0.01))).reshape(-1)
 
     def uses_kernel(self) -> bool:
-        """The kernel path, unless attention dropout is active."""
-        return self.impl == "pallas" and not (self.training and self.attn_drop > 0.0)
+        """The kernel path, unless attention dropout is active or the
+        probabilities are captured."""
+        return (self.impl == "pallas" and self.capture is None
+                and not (self.training and self.attn_drop > 0.0))
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor],
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -194,8 +200,10 @@ class WindowAttention(nn.Module):
         wp, proj_bias = self.output.dense.weight, self.output.dense.bias
         if self.qkv_bias:
             # Softmax rows sum to 1, so P @ (v + b) == P @ v + b: the v-bias
-            # passes through to the output projection as bp + Wp @ bv.
-            proj_bias = proj_bias + F.linear(s.value.bias, wp)
+            # passes through to the output projection as bp + Wp @ bv. (A
+            # 2-D product: a 1-D one squeezes the GEMM's output in place,
+            # which selective checkpointing refuses for a saved output.)
+            proj_bias = proj_bias + F.linear(s.value.bias[None], wp)[0]
         return out @ wp.to(dt).t() + proj_bias.to(dt)
 
     def _forward_plain(self, x: torch.Tensor, mask: Optional[torch.Tensor],
@@ -223,6 +231,8 @@ class WindowAttention(nn.Module):
             scores = scores.reshape(bnw // nw, nw, heads, t, t) + 2.0 * mask.to(sd)[None, :, None]
             scores = scores.reshape(bnw, heads, t, t)
         probs = torch.softmax(scores, dim=-1)
-        probs = dropout(probs, self.attn_drop, self.training, generator).to(v.dtype)
-        out = torch.einsum("bhts,bshd->bthd", probs, v).reshape(bnw, t, c)
+        probs = dropout(probs, self.attn_drop, self.training, generator)
+        if self.capture is not None:
+            self.capture.append(probs)
+        out = torch.einsum("bhts,bshd->bthd", probs.to(v.dtype), v).reshape(bnw, t, c)
         return out @ self.output.dense.weight.to(dt).t() + self.output.dense.bias.to(dt)

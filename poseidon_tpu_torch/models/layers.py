@@ -67,13 +67,14 @@ class DropPath(nn.Module):
 
     def keep_factor(self, batch: int,
                     generator: Optional[torch.Generator] = None) -> Optional[torch.Tensor]:
-        """(batch,) fp32 keep mask / keep on the CPU, drawn as ``forward``
-        draws it, or None when inactive. The fused block tail folds it into
-        its per-sample scale and shift."""
+        """(batch,) fp32 keep mask / keep, drawn as ``forward`` draws it on
+        the generator's device (the CPU when None), or None when inactive.
+        The fused block tail folds it into its per-sample scale and shift."""
         if self.rate == 0.0 or not self.training:
             return None
         keep = 1.0 - self.rate
-        u = torch.rand((batch,), generator=generator, device="cpu")
+        dev = "cpu" if generator is None else generator.device
+        u = torch.rand((batch,), generator=generator, device=dev)
         return (u < keep).float() / keep
 
     def forward(self, x: torch.Tensor,

@@ -12,6 +12,10 @@ neural operator with a U-Net encoder/decoder, mirroring
 - Drop-path rates: linspace(0, rate, 2*sum(depths)), first half encoder,
   second half decoder.
 - FFT resampling when the input resolution differs from ``image_size``.
+- ``remat`` (gradient checkpointing) per SwinBlock, the JAX package's four
+  modes; see :func:`run_block`.
+- :func:`forward_with_intermediates`: the prediction with every stage
+  output and every block's attention probabilities.
 
 Module and parameter names follow the reference PyTorch state dict
 (``embeddings``, ``encoder.layers.{i}``, ``decoder.layers.{k}`` in execution
@@ -22,13 +26,15 @@ weight bridge. Parameters stay fp32; ``dtype`` is the compute dtype.
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import List, Optional, Tuple
+from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint as tuc
 
 from ..config import ScOTConfig
 from ..ops.mlp import fused_mlp, mlp_cln, use_fused_tail
@@ -126,6 +132,11 @@ class SwinBlock(nn.Module):
         self.layernorm_after = make_norm(cfg.use_conditioning, dim, cfg.layer_norm_eps, dtype)
         self.drop_path = DropPath(drop_path)
 
+    def kernels_on(self) -> bool:
+        """The kernel path: under "pallas", unless the block's attention
+        probabilities are being captured (only the plain path forms them)."""
+        return self.config.attention_impl == "pallas" and self.attention.capture is None
+
     def uses_fused_tail(self, time: Optional[torch.Tensor], tokens: int) -> bool:
         """The fused block tail (``ops/mlp.py::mlp_cln``) in place of MLP ->
         dropout -> conditional norm -> drop-path -> residual: under the
@@ -136,7 +147,7 @@ class SwinBlock(nn.Module):
         widths and the dtype the tail's kernels take)."""
         cfg = self.config
         fc = self.intermediate.dense
-        return (cfg.attention_impl == "pallas" and cfg.fused_block_tail
+        return (self.kernels_on() and cfg.fused_block_tail
                 and cfg.use_conditioning and time is not None
                 and (cfg.hidden_dropout_prob == 0.0 or not self.training)
                 and use_fused_tail(fc.in_features, tokens, fc.out_features, self.dtype,
@@ -180,13 +191,96 @@ class SwinBlock(nn.Module):
                 factor = factor.to(x.device)[:, None]
                 scale, shift = scale * factor, shift * factor
             return mlp_cln(x.to(dt), w1.to(dt), b1, w2.to(dt), b2, scale, shift, norm.eps)
-        if cfg.attention_impl == "pallas":
+        if self.kernels_on():
             mlp = fused_mlp(x.to(dt), w1.to(dt), b1, w2.to(dt), b2)
         else:
             mlp = dense(gelu_exact(dense(x.to(dt), w1, b1)), w2, b2)
         mlp = dropout(mlp, cfg.hidden_dropout_prob, self.training, generator)
         mlp = self.layernorm_after(mlp, time)
         return x + self.drop_path(mlp, generator)
+
+
+# ---------------------------------------------------------------------------
+# Gradient checkpointing
+# ---------------------------------------------------------------------------
+
+REMAT_MODES = (False, True, "save_all", "save_dots")
+
+
+def _check_remat(mode) -> None:
+    if mode not in REMAT_MODES:
+        raise ValueError(f"remat must be one of {REMAT_MODES}, got {mode!r}")
+
+
+# The matrix products whose outputs "save_dots" keeps (JAX's dots_saveable).
+_DOT_OPS = frozenset(
+    op for op in (getattr(torch.ops.aten, name, None)
+                  for name in ("mm", "bmm", "addmm", "baddbmm", "addbmm", "_scaled_mm"))
+    if op is not None)
+
+
+def _save_dots_policy(ctx, op, *args, **kwargs):
+    del ctx, args, kwargs
+    return (tuc.CheckpointPolicy.MUST_SAVE if op.overloadpacket in _DOT_OPS
+            else tuc.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _draws_masks(block: SwinBlock) -> bool:
+    cfg = block.config
+    return block.training and (cfg.hidden_dropout_prob > 0.0
+                               or cfg.attention_probs_dropout_prob > 0.0
+                               or block.drop_path.rate > 0.0)
+
+
+def run_block(block: SwinBlock, x: torch.Tensor, time: Optional[torch.Tensor],
+              generator: Optional[torch.Generator], remat: Union[bool, str]) -> torch.Tensor:
+    """``block(x, time, generator)`` under the ``remat`` mode of the JAX
+    field (``poseidon_tpu/models/scot.py::_remat_block``):
+
+    - ``False`` and ``"save_all"``: the block as it is (PyTorch's autograd
+      graph already keeps every residual per op: saving all of them is the
+      plain call);
+    - ``True``: ``torch.utils.checkpoint`` (non-reentrant), the block's
+      forward run again in the backward;
+    - ``"save_dots"``: selective checkpointing that keeps the outputs of
+      the matrix products and recomputes the rest.
+
+    The recompute draws the forward's dropout and drop-path masks: the
+    generator's state at block entry is set again for it, and the state the
+    generator had before the recompute is put back after it (also when the
+    recompute stops early), so the generator ends where the plain step
+    leaves it. A block that draws no mask saves and restores nothing.
+    Without grad, or while intermediates are captured, the block runs as
+    it is."""
+    if (remat in (False, "save_all") or not torch.is_grad_enabled()
+            or block.attention.capture is not None):
+        return block(x, time, generator)
+    draws = _draws_masks(block)
+    if draws and generator is not None:
+        entry_state = generator.get_state()
+        calls = [0]
+
+        def fn(x, time):
+            calls[0] += 1
+            if calls[0] == 1:  # the forward
+                return block(x, time, generator)
+            after = generator.get_state()
+            generator.set_state(entry_state)
+            try:
+                return block(x, time, generator)
+            finally:
+                generator.set_state(after)
+    else:
+        def fn(x, time):
+            return block(x, time, generator)
+
+    kw = {}
+    if remat == "save_dots":
+        kw["context_fn"] = functools.partial(tuc.create_selective_checkpoint_contexts,
+                                             _save_dots_policy)
+    # Masks drawn from the global RNG (no generator) need its state kept.
+    return tuc.checkpoint(fn, x, time, use_reentrant=False,
+                          preserve_rng_state=draws and generator is None, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -213,11 +307,15 @@ class _Stage(nn.Module):
 
 class Encoder(nn.Module):
     """Hierarchical encoder; returns the pre-downsample state of every stage
-    (the U-Net skip states)."""
+    (the U-Net skip states). ``remat``: see :func:`run_block`."""
 
-    def __init__(self, config: ScOTConfig, dtype: torch.dtype = torch.float32):
+    def __init__(self, config: ScOTConfig, dtype: torch.dtype = torch.float32,
+                 remat: Union[bool, str] = False):
         super().__init__()
         cfg = config
+        self.remat = remat
+        # A list while forward_with_intermediates captures the stage outputs.
+        self.capture: Optional[List[torch.Tensor]] = None
         dpr, _ = _drop_path_rates(cfg)
         layers = []
         for i in range(cfg.num_stages):
@@ -239,8 +337,10 @@ class Encoder(nn.Module):
         for stage in self.layers:
             stage_input = x
             for blk in stage.blocks:
-                x = blk(x, time, generator)
+                x = run_block(blk, x, time, generator, self.remat)
             skips.append(x)
+            if self.capture is not None:
+                self.capture.append(x)
             if hasattr(stage, "downsample"):
                 # The stage residual feeds the downsample.
                 x = stage.downsample(x + stage_input, time)
@@ -249,11 +349,14 @@ class Encoder(nn.Module):
 
 class Decoder(nn.Module):
     """Mirror decoder. ``layers[k]`` is pyramid level ``num_stages-1-k``
-    (execution order, deepest first)."""
+    (execution order, deepest first). ``remat``: see :func:`run_block`."""
 
-    def __init__(self, config: ScOTConfig, dtype: torch.dtype = torch.float32):
+    def __init__(self, config: ScOTConfig, dtype: torch.dtype = torch.float32,
+                 remat: Union[bool, str] = False):
         super().__init__()
         cfg = config
+        self.remat = remat
+        self.capture: Optional[List[torch.Tensor]] = None
         _, dpr = _drop_path_rates(cfg)
         n = cfg.num_stages
         layers = []
@@ -281,7 +384,9 @@ class Decoder(nn.Module):
             if k > 0:
                 x = x + skips[n - 1 - k]
             for blk in stage.blocks:
-                x = blk(x, time, generator)
+                x = run_block(blk, x, time, generator, self.remat)
+            if self.capture is not None:
+                self.capture.append(x)
             if hasattr(stage, "upsample"):
                 x = stage.upsample(x, time)
         return x
@@ -311,16 +416,19 @@ class ScOT(nn.Module):
     ``model(pixel_values, time)`` with ``pixel_values`` NCHW (B, C_in, H, W)
     and ``time`` (B,) returns the fp32 NCHW prediction (B, C_out, H, W).
     Inside, everything is NHWC / (B, L, C), computed in ``dtype``.
+    ``remat`` checkpoints every SwinBlock (:func:`run_block`); it changes
+    memory and time, never the result.
     """
 
     def __init__(self, config: ScOTConfig, dtype: torch.dtype = torch.float32,
-                 use_mask_token: bool = False):
+                 use_mask_token: bool = False, remat: Union[bool, str] = False):
         super().__init__()
+        _check_remat(remat)
         cfg = config
         self.config = cfg
         self.dtype = dtype
         self.embeddings = _Embeddings(cfg, dtype, use_mask_token)
-        self.encoder = Encoder(cfg, dtype)
+        self.encoder = Encoder(cfg, dtype, remat)
         blocks = []
         for i, depth in enumerate(cfg.skip_connections):
             dim = cfg.stage_dim(i)
@@ -331,7 +439,7 @@ class ScOT(nn.Module):
                 stage = [ResNetBlock(dim, dtype) for _ in range(depth)]
             blocks.append(nn.ModuleList(stage))
         self.residual_blocks = nn.ModuleList(blocks)
-        self.decoder = Decoder(cfg, dtype)
+        self.decoder = Decoder(cfg, dtype, remat)
         self.patch_recovery = PatchRecovery(cfg.patch_size, cfg.embed_dim,
                                             cfg.num_out_channels, cfg.grid_size, dtype)
 
@@ -378,6 +486,44 @@ class ScOT(nn.Module):
             pred = (fft_upsample if in_size > cfg.image_size else fft_downsample)(pred, in_size)
         return pred
 
+    @property
+    def remat(self) -> Union[bool, str]:
+        return self.encoder.remat
+
+    @remat.setter
+    def remat(self, mode: Union[bool, str]) -> None:
+        _check_remat(mode)
+        self.encoder.remat = self.decoder.remat = mode
+
+
+def forward_with_intermediates(model: ScOT, pixel_values: torch.Tensor,
+                               time: Optional[torch.Tensor] = None, **kwargs):
+    """The reference's ``output_hidden_states`` / ``output_attentions``
+    surface, as ``poseidon_tpu.models.scot.forward_with_intermediates``.
+    Returns ``(prediction, hidden_states, attentions)``: the encoder stages'
+    pre-downsample token maps in ascending order, then the decoder stage
+    outputs deepest-first; and the post-softmax, post-dropout attention
+    probabilities (N*nW, heads, T, T) of every block in execution order.
+    ``kwargs`` go to ``model.forward`` (``bool_masked_pos``, ``generator``).
+
+    Every block takes the plain path whatever ``attention_impl`` says (the
+    kernels never form the probabilities), as the JAX function retraces
+    with ``attention_impl="xla"``: the modules' ``capture`` lists are set
+    for this call and cleared after it, and the model and its config are
+    left as they were. Gradients flow as through ``model(...)``."""
+    hidden_states: List[torch.Tensor] = []
+    attentions: List[torch.Tensor] = []
+    capturing = [(m, attentions) for m in model.modules() if isinstance(m, WindowAttention)]
+    capturing += [(model.encoder, hidden_states), (model.decoder, hidden_states)]
+    try:
+        for module, sink in capturing:
+            module.capture = sink
+        pred = model(pixel_values, time, **kwargs)
+    finally:
+        for module, _ in capturing:
+            module.capture = None
+    return pred, hidden_states, attentions
+
 
 # ---------------------------------------------------------------------------
 # Construction
@@ -419,12 +565,12 @@ def init_weights(model: ScOT, generator: torch.Generator) -> None:
 
 
 def build_model(config: ScOTConfig, *, device=None, dtype: torch.dtype = torch.float32,
-                seed: int = 0) -> ScOT:
+                seed: int = 0, remat: Union[bool, str] = False) -> ScOT:
     """A randomly initialised ScOT (weights from ``torch.Generator`` seeded
     with ``seed``) on ``device`` (default CUDA; raises when CUDA is absent
     and the caller did not ask for the CPU), in eval mode."""
     dev = resolve_device(device)
-    model = ScOT(config, dtype=dtype)
+    model = ScOT(config, dtype=dtype, remat=remat)
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(dev).eval()
 

@@ -1,7 +1,6 @@
 """Training arguments: ``poseidon_tpu.training.arguments.TrainingArguments``
-field for field, so that a JAX run's arguments load. Two are refused:
-``num_model_shards > 1`` and ``gradient_checkpointing=True`` (ROADMAP
-queue 1)."""
+field for field, so that a JAX run's arguments load. ``num_model_shards >
+1`` is refused (ROADMAP queue 1, multi-GPU)."""
 
 from __future__ import annotations
 
@@ -62,9 +61,9 @@ class TrainingArguments:
     # Parameter sharding over a model axis (FSDP): the port runs on one card
     # and refuses values above 1 (ROADMAP queue 1, multi-GPU).
     num_model_shards: int = 1
-    # Recompute each Swin stage in the backward: refused by the port (ROADMAP
-    # queue 1: under torch.utils.checkpoint the recompute would draw the
-    # dropout masks from the explicit generators a second time).
+    # Recompute each Swin block in the backward. As in the JAX package the
+    # Trainer only carries the flag: whoever builds the model passes it as
+    # ``remat`` (the train CLI does).
     gradient_checkpointing: bool = False
     report_to: str = "jsonl"  # "jsonl" | "wandb" | "none"
     run_name: Optional[str] = None
@@ -79,9 +78,6 @@ class TrainingArguments:
         if self.num_model_shards > 1:
             raise ValueError(f"num_model_shards={self.num_model_shards}: the port trains on one "
                              f"card; parameter sharding is ROADMAP queue 1 (multi-GPU)")
-        if self.gradient_checkpointing:
-            raise ValueError("gradient_checkpointing=True: not ported (ROADMAP queue 1: the "
-                             "recompute would draw the dropout masks a second time)")
         if self.compute_dtype not in ("bfloat16", "float32"):
             raise ValueError(f"compute_dtype must be 'bfloat16' or 'float32', got "
                              f"{self.compute_dtype!r}")

@@ -15,8 +15,8 @@
 loss has gradients through its own forward only (the reference detaches
 between steps), and BatchNorm running statistics (the resnet residual
 variant), which PyTorch keeps in the model's buffers, are updated step
-after step in train mode. ``rollout_with_intermediates`` waits for the port
-of ``forward_with_intermediates`` (ROADMAP).
+after step in train mode. :func:`rollout_with_intermediates` also stacks
+each step's hidden states and attention probabilities.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ from typing import Any, Callable, Optional, Sequence, Tuple, Union
 
 import torch
 
+from ..models.scot import forward_with_intermediates
 from ..utils.device import resolve_device
 
 StepFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]  # (x, time) -> prediction
@@ -98,3 +99,29 @@ def rollout_loss(step_fn: StepFn, loss_fn: Callable[[torch.Tensor, torch.Tensor]
         num_out_channels)
     losses = [loss_fn(preds[:, i], labels) for i in range(preds.shape[1])]
     return torch.stack(losses).mean(), preds[:, -1]
+
+
+def rollout_with_intermediates(model, pixel_values: torch.Tensor, time: torch.Tensor,
+                               ar_steps: Union[int, Sequence[float]], **kwargs):
+    """The rollout that also stacks every step's hidden states and attention
+    probabilities on a new axis 1, as the reference's ``output_all_steps``
+    surface and ``poseidon_tpu.training.rollout.rollout_with_intermediates``:
+    an eager loop of ``models.scot.forward_with_intermediates`` (``kwargs``
+    go to it), each prediction fed back detached with the static channels.
+    Runs on the inputs' device, autograd as the caller has it. Returns
+    ``(predictions (B, n, C_out, H, W), hidden_states, attentions)``, the
+    latter two lists with one (B, n, ...) tensor a layer."""
+    num_out = model.config.num_out_channels
+    static = pixel_values[:, num_out:] if pixel_values.shape[1] > num_out else None
+    x, preds, hs_steps, attn_steps = pixel_values, [], [], []
+    for step_time in _step_times(time, ar_steps):
+        pred, hs, attn = forward_with_intermediates(model, x, step_time, **kwargs)
+        preds.append(pred)
+        hs_steps.append(hs)
+        attn_steps.append(attn)
+        x = _next_input(pred, static)
+
+    def stack(per_step):
+        return [torch.stack(layer, dim=1) for layer in zip(*per_step)]
+
+    return torch.stack(preds, dim=1), stack(hs_steps), stack(attn_steps)

@@ -52,8 +52,34 @@ def test_imports_with_jax_blocked():
             "import poseidon_tpu_torch.data.registry, poseidon_tpu_torch.data.loader\n"
             "import poseidon_tpu_torch.data.fluids, poseidon_tpu_torch.data.elliptic\n"
             "import poseidon_tpu_torch.data.wave, poseidon_tpu_torch.data.reaction_diffusion\n"
+            "import poseidon_tpu_torch.inference, poseidon_tpu_torch.train\n"
+            "import poseidon_tpu_torch.utils.params, poseidon_tpu_torch.utils.plotting\n"
             "assert not any(m.split('.')[0] in ('jax', 'flax') and sys.modules[m] is not None\n"
             "               for m in sys.modules)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_clis_and_hub_need_no_optional_package(tmp_path):
+    # The card's machine may lack any of these: both CLIs import, and a
+    # checkpoint directory is written and read, without them.
+    code = ("import sys\n"
+            "for m in ('jax', 'flax', 'poseidon_tpu', 'yaml', 'matplotlib', 'wandb',\n"
+            "          'safetensors', 'huggingface_hub', 'h5py'):\n"
+            "    sys.modules[m] = None\n"
+            "import poseidon_tpu_torch as pt\n"
+            "import poseidon_tpu_torch.inference, poseidon_tpu_torch.train\n"
+            "import poseidon_tpu_torch.utils.params, poseidon_tpu_torch.utils.plotting\n"
+            "cfg = pt.make_config('T', image_size=32, num_channels=2, num_out_channels=2,\n"
+            "                     embed_dim=16, depths=(2, 2), num_heads=(2, 2),\n"
+            "                     skip_connections=(1, 0), window_size=4)\n"
+            "m = pt.build_model(cfg, device='cpu')\n"
+            f"pt.save_pretrained(m, {str(tmp_path)!r})\n"
+            f"back = pt.from_pretrained({str(tmp_path)!r}, device='cpu')\n"
+            "sd = m.state_dict()\n"
+            "assert all((back.state_dict()[k] == v).all() for k, v in sd.items())\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)

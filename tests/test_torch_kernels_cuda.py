@@ -456,3 +456,39 @@ def test_general_mlp_kernels_match_plain(m, c, f, dtype):
     again = mlp_op.mlp_bwd(x, w1, b1, w2, dy)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(grads, again)), "not bit-identical"
+
+
+@pytest.mark.cuda
+def test_remat_step_through_kernels_matches_plain_step():
+    """A ScOT-T bf16 train-mode step (hidden dropout and drop-path on, masks
+    from a CUDA generator) under ``remat=True``: the loss and the
+    generator's end state equal the step without checkpointing, every
+    gradient within relative L2 1e-6, and the attention and MLP forward
+    kernels run twice a block (the recompute)."""
+    _needs_card()
+    import poseidon_tpu_torch as pt
+
+    cfg = pt.make_config("T", image_size=128, num_channels=4, num_out_channels=4,
+                         channel_slice_list=(0, 1, 3, 4), use_conditioning=True,
+                         attention_impl="pallas", hidden_dropout_prob=0.1, drop_path_rate=0.1)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(4, 4, 128, 128, generator=g).cuda()
+    y = torch.randn(4, 4, 128, 128, generator=g).cuda()
+    t = torch.rand(4, generator=g).cuda()
+    out = {}
+    for remat in (False, True):
+        model = pt.build_model(cfg, device="cuda", dtype=torch.bfloat16, remat=remat).train()
+        wa.window_attention.launches = mlp_op.mlp.launches = 0
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        loss = pt.scot_loss(model(x, t, generator=gen), y, cfg)
+        loss.backward()
+        torch.cuda.synchronize()
+        out[remat] = (loss.detach(), {k: p.grad for k, p in model.named_parameters()},
+                      gen.get_state(), wa.window_attention.launches, mlp_op.mlp.launches)
+    (l0, g0, s0, a0, m0), (l1, g1, s1, a1, m1) = out[False], out[True]
+    assert torch.equal(l1, l0)
+    assert torch.equal(s1, s0)
+    for k in g0:
+        assert _rel(g1[k], g0[k]) <= 1e-6 or torch.equal(g1[k], g0[k]), k
+    assert a0 == 2 * sum(cfg.depths) and a1 == 2 * a0
+    assert m0 > 0 and m1 == 2 * m0
