@@ -103,8 +103,17 @@ Phases, one JSON line each (any failure ends the run with a non-zero exit):
 21. intermediates: ``forward_with_intermediates`` and
    ``rollout_with_intermediates`` on ScOT-B fp32 (see
    ``phase_intermediates``);
-22. the kernels line (with each kernel's launches in phases 18-20); 23. the
-   device line, last.
+22. data_parallel: the Trainer over a process group of worker copies of
+   this script, DDP (and with two cards or more HSDP) held to one process
+   (see ``phase_data_parallel``);
+23. the kernels line (with each kernel's launches in phases 18-20 and on
+   rank 0 of phase 22); 24. the device line, last.
+
+    python3 chip_smoke.py --phase data_parallel   # phase 22 alone
+
+runs the data parallel phase alone, after the cards' line and the build of
+the four sources the bf16 step runs; with four cards it adds the
+throughput and memory cells (``DP_CELLS``).
 
 Exits non-zero without printing results when CUDA is absent.
 """
@@ -2164,6 +2173,331 @@ def phase_intermediates(pt, wa, mlp_op, attn_mod, card):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Data parallelism
+# ---------------------------------------------------------------------------
+
+DP_ROWS = 16          # global batch of the check runs: 8 a rank on two ranks
+DP_STEPS = 3
+DP_TIMED = 4          # steps timed (after the run's own) for steps/s
+DP_LOSS_TOL = 5e-3    # per step, relative: bf16, another summation order
+DP_NORM_TOL = 1e-3    # the grad norm of each step, relative
+DP_PARAM_TOL = 1e-3   # relative L2 of all parameters after DP_STEPS
+# Four cards only: (size, num_model_shards, rows a rank) of the throughput
+# and memory cells.
+DP_CELLS = (("B", 1, 32), ("B", 2, 32), ("L", 1, 8), ("L", 4, 8))
+
+
+class DPData:
+    """The data parallel phase's train set, made in memory from a seed and
+    the same in every process: CE-Gauss-shaped samples (4 channels,
+    128 x 128, blocky fields), the labels a decayed copy of the inputs whose
+    scale differs from sample to sample (so that each rank's rows differ in
+    label scale, which the loss's normalisers must see whole)."""
+
+    def __init__(self, n):
+        self.n = n
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        rng = np.random.default_rng(7000 + i)
+        x = np.kron(rng.normal(size=(4, 16, 16)), np.ones((8, 8))).astype(np.float32)
+        t = np.float32(0.1 + 0.1 * (i % 8))
+        return {"pixel_values": x, "labels": x * np.float32(np.exp(-t) * (1 + i % 3)),
+                "time": t}
+
+
+def dp_trainer(pt, size, out, rows_global, n, model_shards=1):
+    """A Trainer of seeded ScOT-``size`` (bf16 compute, ``"pallas"``) on
+    ``DPData(n)`` at the global batch ``rows_global``, on this process's
+    card, with the process group's mesh when there is one."""
+    cfg = pt.make_config(size, image_size=128, num_channels=4, num_out_channels=4,
+                         channel_slice_list=(0, 1, 3, 4), use_conditioning=True,
+                         attention_impl="pallas")
+    device = torch.device("cuda", torch.cuda.current_device())
+    model = pt.build_model(cfg, device=device, dtype=torch.bfloat16, seed=0)
+    args = pt.TrainingArguments(
+        output_dir=out, train_batch_size=rows_global, eval_batch_size=rows_global,
+        num_train_epochs=1, learning_rate=1e-4, weight_decay=1e-6, max_grad_norm=5.0,
+        logging_steps=1, save_total_limit=1, num_workers=4, num_model_shards=model_shards)
+    return pt.Trainer(model, args, train_dataset=DPData(n), device=device)
+
+
+def dp_timed(trainer, rows_global, profile):
+    """Steps/s of ``DP_TIMED`` train steps on one fixed global batch (this
+    rank's rows of it), after two warm-up steps; with ``profile``, also the
+    device ms a step of the NCCL kernels and of all kernels over two steps
+    (torch.profiler)."""
+    from poseidon_tpu_torch.parallel.mesh import shard_batch
+
+    ds = trainer.train_dataset
+    batch = {k: np.stack([np.asarray(ds[i][k]) for i in range(rows_global)])
+             for k in ("pixel_values", "labels", "time")}
+    if trainer.mesh is not None:
+        batch = shard_batch(batch, trainer.mesh)
+    dev = {k: torch.from_numpy(v).to(trainer.device) for k, v in batch.items()}
+
+    def step():
+        trainer._train_step(dev, trainer.step)
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DP_TIMED):
+        step()
+    torch.cuda.synchronize()
+    out = {"steps_per_s": DP_TIMED / (time.perf_counter() - t0)}
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as prof
+
+        with prof(activities=[ProfilerActivity.CUDA]) as p:
+            for _ in range(2):
+                step()
+            torch.cuda.synchronize()
+        kernels = [e for e in p.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        out["device_ms_per_step"] = sum(dev_us(e) for e in kernels) / 2e3
+        out["nccl_ms_per_step"] = sum(dev_us(e) for e in kernels if "nccl" in e.key.lower()) / 2e3
+    return out
+
+
+def dp_local_hash(model):
+    """SHA-256 of this rank's parameters as it holds them (FSDP: its
+    shards), in name order."""
+    import hashlib
+
+    from torch.distributed.tensor import DTensor
+
+    h = hashlib.sha256()
+    for name, p in sorted(model.named_parameters()):
+        t = p.to_local() if isinstance(p, DTensor) else p
+        h.update(name.encode())
+        h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_run(pt, wa, mlp_op, out, model_shards, profile):
+    """One check run: ``Trainer.train`` of seeded ScOT-B over ``DP_STEPS``
+    steps at the global batch ``DP_ROWS`` (launches counted from just
+    before to just after it), then timed steps."""
+    trainer = dp_trainer(pt, "B", out, DP_ROWS, DP_ROWS * DP_STEPS, model_shards)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(wa, mlp_op)
+    trainer.train()
+    torch.cuda.synchronize()
+    counts = read_counts(wa, mlp_op)
+    per_step = block_launches(trainer.model, wa, mlp_op, backward=True)
+    res = {"launches": counts,
+           "launches_ok": counts == {k: DP_STEPS * v for k, v in per_step.items()},
+           "launches_per_step": {k: v // DP_STEPS for k, v in counts.items() if v},
+           "param_hash": dp_local_hash(trainer.model),
+           "model_index": trainer.mesh["model"].get_local_rank() if trainer.mesh else 0}
+    if model_shards > 1:
+        from poseidon_tpu_torch.parallel.mesh import assert_opt_state_sharded
+
+        res["moments_sharded"] = assert_opt_state_sharded(trainer.optimizer, trainer.mesh)
+    res.update(dp_timed(trainer, DP_ROWS, profile))
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return res
+
+
+def dp_cell(pt, size, model_shards, rows, world, profile):
+    """A throughput and memory cell: ScOT-``size`` at ``rows`` a rank
+    (global batch ``rows * world / model_shards``), peak memory a card over
+    one train step, and the timed steps."""
+    rows_global = rows * world // model_shards
+    trainer = dp_trainer(pt, size, tempfile.mkdtemp(prefix="chip_smoke_cell_"), rows_global,
+                         rows_global * (DP_TIMED + 4), model_shards)
+    torch.cuda.reset_peak_memory_stats()
+    res = dp_timed(trainer, rows_global, profile)
+    res.update({"size": size, "model_shards": model_shards, "rows_a_rank": rows,
+                "global_batch": rows_global, "world": world,
+                "samples_per_s": res["steps_per_s"] * rows_global,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+    del trainer
+    torch.cuda.empty_cache()
+    return res
+
+
+def dp_worker(rank: int, world: int, root: str) -> None:
+    """One rank of the data parallel phase (``chip_smoke.py --dp-worker
+    rank world root``): joins the group (NCCL on a card of its own, else
+    gloo) by the file store in ``root``, runs the spec's check runs and
+    cells, and writes its results to ``root/rank<r>.json``."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import poseidon_tpu_torch as pt
+    from poseidon_tpu_torch.ops import mlp as mlp_op, window_attention as wa
+
+    with open(os.path.join(root, "spec.json")) as f:
+        spec = json.load(f)
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(spec["backend"], init_method=f"file://{root}/rendezvous",
+                            rank=rank, world_size=world)
+    profile = spec["backend"] == "nccl"
+    try:
+        out = {"rank": rank, "device": torch.cuda.current_device(),
+               "runs": {name: dp_run(pt, wa, mlp_op, os.path.join(root, name), shards, profile)
+                        for name, shards in spec["runs"]},
+               "cells": [dp_cell(pt, *cell, world, profile) for cell in spec["cells"]]}
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def dp_reference(pt, wa, mlp_op, root):
+    """The check run in this process: the same steps at the same global
+    batch on one card; the step log, the final parameters (on the CPU) and
+    the timed steps."""
+    out = os.path.join(root, "one_process")
+    trainer = dp_trainer(pt, "B", out, DP_ROWS, DP_ROWS * DP_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    trainer.train()
+    params = {k: v.float().cpu() for k, v in trainer.model.state_dict().items()}
+    res = dp_timed(trainer, DP_ROWS, profile=False)
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del trainer
+    torch.cuda.empty_cache()
+    return dp_step_log(out), params, res
+
+
+def dp_step_log(out):
+    with open(os.path.join(out, "logs.jsonl")) as fh:
+        return [r for r in map(json.loads, fh) if "step" in r]
+
+
+def dp_rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def phase_data_parallel(pt, wa, mlp_op, card):
+    """The Trainer over a process group on the card(s): ``world`` worker
+    processes of this script (``dp_worker``), with two or more cards one a
+    card over NCCL, with one card two on it over gloo (DDP on CUDA tensors:
+    NCCL refuses two ranks on one device). Check runs: DDP (and, with two
+    cards or more, HSDP over a model axis of 2) take ``DP_STEPS`` steps of
+    seeded ScOT-B bf16 at the global batch ``DP_ROWS``, held to the same
+    steps in this process: every step's loss (``DP_LOSS_TOL``) and grad
+    norm (``DP_NORM_TOL``), the parameters after the steps (relative L2
+    ``DP_PARAM_TOL``, from the checkpoint process 0 wrote), the kernels'
+    launches on every rank (64/64/32/32 a step), and the replicas'
+    parameters bit-identical. With four cards, also ``DP_CELLS``, and their
+    one-card baselines in this process. Prints
+    steps/s, samples/s, peak memory a card and, with NCCL, the NCCL
+    kernels' device ms a step. Any rank's failure fails the phase."""
+    cards = torch.cuda.device_count()
+    world = cards if cards >= 2 else 2
+    backend = "nccl" if cards >= 2 else "gloo"
+    runs = [("ddp", 1)] + ([("hsdp", 2)] if cards >= 2 and world % 2 == 0 else [])
+    if len(runs) == 1:
+        print("data_parallel: HSDP (FSDP over a model axis) needs two cards; not run",
+              flush=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        t0 = time.perf_counter()
+        ref_log, ref_params, ref_timed = dp_reference(pt, wa, mlp_op, root)
+        ref_s = time.perf_counter() - t0
+        spec = {"backend": backend, "runs": runs,
+                "cells": DP_CELLS if cards >= 4 else ()}
+        # The cells' one-card baselines (the model axis 1, one process).
+        one_cells = [dp_cell(pt, size, 1, rows, 1, False)
+                     for size, rows in sorted({(c[0], c[2]) for c in spec["cells"]})]
+        with open(os.path.join(root, "spec.json"), "w") as f:
+            json.dump(spec, f)
+        t0 = time.perf_counter()
+        logs = [open(os.path.join(root, f"rank{r}.log"), "w") for r in range(world)]
+        # One OpenMP thread a rank unless the caller says otherwise, as
+        # torchrun starts its processes.
+        env = dict(os.environ, OMP_NUM_THREADS=os.environ.get("OMP_NUM_THREADS", "1"))
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dp-worker",
+                                   str(r), str(world), root], stdout=logs[r],
+                                  stderr=subprocess.STDOUT, env=env) for r in range(world)]
+        deadline = time.monotonic() + (900 if spec["cells"] else 420)
+        try:
+            for p in procs:
+                p.wait(timeout=max(deadline - time.monotonic(), 1))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for fh in logs:
+                fh.close()
+        workers_s = time.perf_counter() - t0
+        failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+        if failed:
+            for r in failed:
+                with open(os.path.join(root, f"rank{r}.log")) as fh:
+                    print(f"data_parallel rank {r} (rc {procs[r].returncode}):\n"
+                          + fh.read()[-6000:], file=sys.stderr, flush=True)
+            raise SystemExit(f"data_parallel phase failed: ranks {failed}")
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(root, f"rank{r}.json")) as fh:
+                ranks.append(json.load(fh))
+        checks = {}
+        for name, _ in runs:
+            out = os.path.join(root, name)
+            log = dp_step_log(out)
+            params = torch.load(os.path.join(out, "checkpoint-0", "state.pt"),
+                                map_location="cpu", weights_only=True)["model"]
+            num = sum(float((params[k].float() - v).pow(2).sum()) for k, v in ref_params.items())
+            den = sum(float(v.pow(2).sum()) for v in ref_params.values())
+            res = [rk["runs"][name] for rk in ranks]
+            hashes = {}
+            for rr in res:
+                hashes.setdefault(rr["model_index"], set()).add(rr["param_hash"])
+            c = {"steps": [r["step"] for r in log], "loss": [r["loss"] for r in log],
+                 "loss_one_process": [r["loss"] for r in ref_log],
+                 "grad_norm": [r["grad_norm"] for r in log],
+                 "grad_norm_one_process": [r["grad_norm"] for r in ref_log],
+                 "param_rel_l2": math.sqrt(num / den),
+                 "launches_per_step": [rr["launches_per_step"] for rr in res],
+                 "replicas_bit_identical": all(len(h) == 1 for h in hashes.values()),
+                 "steps_per_s": [rr["steps_per_s"] for rr in res],
+                 "samples_per_s": res[0]["steps_per_s"] * DP_ROWS,
+                 "peak_gib": [rr["peak_gib"] for rr in res],
+                 "nccl_ms_per_step": res[0].get("nccl_ms_per_step"),
+                 "device_ms_per_step": res[0].get("device_ms_per_step")}
+            if "moments_sharded" in res[0]:
+                c["moments_sharded"] = [rr["moments_sharded"] for rr in res]
+            c["ok"] = (len(log) == len(ref_log) == DP_STEPS
+                       and all(dp_rel(a, b) <= DP_LOSS_TOL
+                               for a, b in zip(c["loss"], c["loss_one_process"]))
+                       and all(dp_rel(a, b) <= DP_NORM_TOL
+                               for a, b in zip(c["grad_norm"], c["grad_norm_one_process"]))
+                       and c["param_rel_l2"] <= DP_PARAM_TOL
+                       and all(rr["launches_ok"] for rr in res)
+                       and c["replicas_bit_identical"]
+                       and all(m > 0 for m in c.get("moments_sharded", [1])))
+            checks[name] = c
+        cells = [{**rk0, "peak_gib_ranks": [rk["cells"][i]["peak_gib"] for rk in ranks]}
+                 for i, rk0 in enumerate(ranks[0]["cells"])]
+        ok = all(c["ok"] for c in checks.values())
+        emit({"phase": "data_parallel", "world": world, "cards": cards, "backend": backend,
+              "global_batch": DP_ROWS, "steps": DP_STEPS, "model": "ScOT-B bf16 pallas",
+              "one_process": {**ref_timed, "samples_per_s": ref_timed["steps_per_s"] * DP_ROWS,
+                              "seconds": ref_s},
+              "checks": checks, "hsdp": "hsdp" in checks, "cells": cells,
+              "one_process_cells": one_cells,
+              "workers_s": workers_s, "ok": ok, "card": card,
+              "tolerances": {"loss": DP_LOSS_TOL, "grad_norm": DP_NORM_TOL,
+                             "param_rel_l2": DP_PARAM_TOL}})
+        if not ok:
+            raise SystemExit("data_parallel phase failed")
+        return ranks[0]["runs"]["ddp"]["launches"]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def kernels_line(results, bwd_results, cln_results, op_results, per_forward, rollout_counts,
                  step_counts, tail_forward, tail_counts, op_counts, general, f32_counts,
                  odd_counts, trainer_counts, trainer_steps, b32_counts, paths):
@@ -2257,7 +2591,38 @@ def _with_paths(line, paths):
     return line
 
 
-def main() -> int:
+DP_SOURCES = ("window_attention", "window_attention_bwd", "mlp", "mlp_bwd")
+
+
+def phase_dp_environment(build):
+    """``--phase data_parallel``: the cards (name and power limit, and how
+    they are linked) and the build of the sources the bf16 train step
+    runs."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True, text=True,
+                          timeout=60).stdout
+    print(topo, flush=True)
+    card = smi.splitlines()[0] if smi else ""
+    print(card, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    seconds = build.build(DP_SOURCES)
+    emit({"phase": "environment", "python": sys.version.split()[0], "torch": torch.__version__,
+          "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
+          "cards": torch.cuda.device_count(), "nvidia_smi": smi.splitlines(),
+          "nvcc_seconds": seconds, "build_wall_s": time.perf_counter() - t0})
+    return card
+
+
+def main(argv) -> int:
+    if argv[:1] == ["--dp-worker"]:
+        dp_worker(int(argv[1]), int(argv[2]), argv[3])
+        return 0
+    if argv not in ([], ["--phase", "data_parallel"]):
+        print("usage: chip_smoke.py [--phase data_parallel]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing run", file=sys.stderr)
         return 1
@@ -2267,6 +2632,11 @@ def main() -> int:
     from poseidon_tpu_torch.ops import _build, mlp as mlp_op, window_attention as wa_mod
     from poseidon_tpu_torch.utils.device import bound_ms
 
+    if argv:
+        card = phase_dp_environment(_build)
+        phase_data_parallel(pt, wa_mod, mlp_op, card)
+        emit(device_line())
+        return 0
     card = phase_environment(_build, wa_mod, mlp_op)
     results = phase_kernels(pt, wa_mod, mlp_op, attn_mod, bound_ms, card)
     model, x, t, per_forward, forward_ms = phase_model(pt, wa_mod, mlp_op, attn_mod, card)
@@ -2317,15 +2687,20 @@ def main() -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     phase_intermediates(pt, wa_mod, mlp_op, attn_mod, card)
+    dp_counts = phase_data_parallel(pt, wa_mod, mlp_op, card)
     paths = {"remat_step": remat_counts, "cli_train": cli_counts, "cli_finetune": ft_counts,
-             "cli_inference_eval": inference_counts}
+             "cli_inference_eval": inference_counts, "data_parallel_rank0": dp_counts}
     emit(kernels_line(results, bwd_results, cln_results, op_results, per_forward,
                       rollout_counts, step_counts, tail_forward, tail_counts, op_counts, general,
                       f32_counts, odd_counts, trainer_counts, trainer_steps, b32_counts, paths))
-    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
+    emit(device_line())
     return 0
 
 
+def device_line():
+    return {"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                   "count": torch.cuda.device_count()}}
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

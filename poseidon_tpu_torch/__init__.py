@@ -3,8 +3,9 @@
 Importing this package imports ``torch`` only: no JAX, and nothing of the
 JAX package. The kernels (``ops/``) are built and loaded at first use.
 The data layer (``data/``) and the metrics are numpy and h5py; the Trainer
-(``training/``) trains, evaluates and predicts on one card. The command
-lines are ``python -m poseidon_tpu_torch.train`` and
+(``training/``) trains, evaluates and predicts on one card, or on several
+under ``torchrun`` (``parallel/``: DDP, HSDP). The command lines are
+``python -m poseidon_tpu_torch.train`` and
 ``python -m poseidon_tpu_torch.inference``.
 """
 

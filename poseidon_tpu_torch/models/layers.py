@@ -13,6 +13,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -271,12 +272,20 @@ class ConvNeXtBlock(nn.Module):
 class BatchNorm(nn.Module):
     """BatchNorm over the last (channel) axis with flax's numerics and the
     reference's parameter names (weight, bias, running_mean, running_var;
-    no batch counter). Eval uses the running statistics."""
+    no batch counter). Eval uses the running statistics.
+
+    ``process_group`` (set by the Trainer under data parallelism): the
+    group over which the batch is split. The train-mode statistics are then
+    those of the whole batch, as flax's BatchNorm computes them under the
+    JAX mesh: the sums are all-reduced over the group, with autograd through
+    the reduction, so the running statistics agree on every rank and the
+    gradients are those of the whole batch."""
 
     def __init__(self, dim: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
         self.eps = eps
         self.momentum = momentum
+        self.process_group = None
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
         self.register_buffer("running_mean", torch.zeros(dim))
@@ -286,8 +295,17 @@ class BatchNorm(nn.Module):
         if self.training:
             xf = x.float()
             axes = tuple(range(x.ndim - 1))
-            mean = xf.mean(axes)
-            var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+            group = self.process_group
+            if group is not None and dist.get_world_size(group) > 1:
+                from torch.distributed.nn.functional import all_reduce
+
+                sums = torch.cat([xf.sum(axes), (xf * xf).sum(axes)])
+                sums = all_reduce(sums, group=group)
+                count = float(xf[..., 0].numel() * dist.get_world_size(group))
+                mean, mean_sq = (sums / count).chunk(2)
+            else:
+                mean, mean_sq = xf.mean(axes), (xf * xf).mean(axes)
+            var = torch.clamp(mean_sq - mean * mean, min=0.0)
             with torch.no_grad():
                 self.running_mean.lerp_(mean, self.momentum)
                 self.running_var.lerp_(var, self.momentum)

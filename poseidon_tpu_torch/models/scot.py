@@ -32,6 +32,7 @@ from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 import torch.utils.checkpoint as tuc
@@ -592,10 +593,22 @@ def apply_pixel_mask(prediction: torch.Tensor, labels: torch.Tensor,
 
 
 def scot_loss(prediction: torch.Tensor, labels: torch.Tensor, config: ScOTConfig,
-              sample_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+              sample_weights: Optional[torch.Tensor] = None, group=None) -> torch.Tensor:
     """L1/L2 loss, optionally per-channel-group normalised: mean over groups
     of ``loss(pred_g, label_g) / (loss(label_g, 0) + 1e-10)``.
-    ``sample_weights`` (B,) masks samples out of every mean."""
+    ``sample_weights`` (B,) masks samples out of every mean.
+
+    ``group``: the process group over which the batch is split (the data
+    axis), when it has more than one process. The loss is then this
+    process's share of the loss of the whole batch, as the JAX package
+    computes it over the global batch: the normalisers ``loss(label_g, 0)``
+    and the sample count are summed over the group (labels and weights
+    only, no gradient), and each process divides its own sum of errors by
+    the global count. The shares of the group's processes sum to the loss
+    of the whole batch, and so do their gradients: the caller makes the
+    gradient reduction a sum (``train_step``)."""
+    if group is not None and dist.get_world_size(group) > 1:
+        return _loss_share(prediction, labels, config, sample_weights, group)
     if sample_weights is None:
         _mean = torch.mean
     else:
@@ -620,4 +633,32 @@ def scot_loss(prediction: torch.Tensor, labels: torch.Tensor, config: ScOTConfig
         p_g = prediction[:, slices[i]:slices[i + 1]]
         l_g = labels[:, slices[i]:slices[i + 1]]
         terms.append(loss_fn(p_g, l_g) / (loss_fn(l_g, torch.zeros_like(l_g)) + 1e-10))
+    return torch.stack(terms).mean()
+
+
+def _loss_share(prediction: torch.Tensor, labels: torch.Tensor, config: ScOTConfig,
+                sample_weights: Optional[torch.Tensor], group) -> torch.Tensor:
+    """This process's share of :func:`scot_loss` over the batch split across
+    ``group``."""
+    b = prediction.shape[0]
+    w = (torch.ones(b, device=prediction.device) if sample_weights is None
+         else sample_weights.float())
+
+    def total(x):  # the weighted sum, fp32
+        return (x.float() * w.reshape((-1,) + (1,) * (x.ndim - 1))).sum()
+
+    def err(a, c):
+        return torch.abs(a - c) if config.p == 1 else (a - c) ** 2
+
+    slices = config.channel_slice_list_normalized_loss
+    bounds = [(None, None)] if slices is None else list(zip(slices[:-1], slices[1:]))
+    labs = [labels[:, lo:hi] for lo, hi in bounds]
+    with torch.no_grad():
+        sums = torch.stack([w.sum()] + [total(err(l_g, torch.zeros_like(l_g))) for l_g in labs])
+        dist.all_reduce(sums, group=group)
+    terms = []
+    for (lo, hi), l_g, norm in zip(bounds, labs, sums[1:]):
+        count = torch.clamp(sums[0] * float(np.prod(l_g.shape[1:])), min=1e-10)
+        num = total(err(prediction[:, lo:hi], l_g)) / count
+        terms.append(num if slices is None else num / (norm / count + 1e-10))
     return torch.stack(terms).mean()

@@ -4,13 +4,17 @@ Each ``csrc/<name>.cu`` has a plain C interface. It is compiled with
 ``nvcc`` for ``sm_90a`` into ``build/kernels/lib<name>-<hash>.so`` (the hash
 covers the source, the ``csrc`` headers it includes and the flags) at first
 use, and loaded with ``ctypes``.
-:func:`build` starts one ``nvcc`` per source, all together. Nothing is built
-or loaded when this module is imported, and a failed build raises.
+:func:`build` starts one ``nvcc`` per source, all together, under a file
+lock: the processes of a process group start together and share the build
+directory, so one builds and the others wait and load what it built.
+:func:`launch` calls an entry point with the operands' device current. Nothing
+is built or loaded when this module is imported, and a failed build raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -19,6 +23,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Sequence
+
+import torch
 
 SOURCES = ("window_attention", "window_attention_bwd", "window_attention_general", "mlp",
            "mlp_bwd", "mlp_cln", "mlp_cln_bwd", "mlp_general")
@@ -63,8 +69,16 @@ def library_path(name: str) -> Path:
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
     """Compile the named sources that are not built yet, one ``nvcc`` each,
-    all started together. Returns seconds per source (0 when cached)."""
+    all started together. Returns seconds per source (0 when cached, or
+    built by another process while this one waited for the lock: the lock
+    is the file system's, released when its holder ends, whatever way)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        return _build(names)
+
+
+def _build(names: Iterable[str]) -> Dict[str, float]:
     nvcc = None
     procs = {}
     seconds = {}
@@ -118,3 +132,16 @@ def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
 
 def error_string(lib: ctypes.CDLL, err: int) -> str:
     return f"CUDA error {err}: {lib.cuda_error_string(err).decode()}"
+
+
+def launch(lib: ctypes.CDLL, fn: str, device: torch.device, *args) -> None:
+    """``lib.fn(*args)`` with ``device`` (the operands') the current device,
+    raising on the error it returns. An entry point sets its kernel's
+    attributes on, and launches on, the current device, and the stream it
+    is given must be that device's: in a process that holds tensors on
+    another card than its current one, a launch without this would go to
+    the wrong card or fail."""
+    with torch.cuda.device(device):
+        err = getattr(lib, fn)(*args)
+    if err != 0:
+        raise RuntimeError(f"{fn} kernel launch failed: {error_string(lib, err)}")

@@ -128,20 +128,15 @@ def _forward(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
         lib = _build.load("mlp_general", _GENERAL_SIGNATURES)
         fp32 = int(x.dtype == torch.float32)
         scratch = _general_scratch(lib, 0, m, c, f, 0, fp32, x.device)
-        err = lib.mlp_general_fwd(x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                                  b2.data_ptr(), out.data_ptr(), scratch.data_ptr(), m, c, f,
-                                  fp32, torch.cuda.current_stream(x.device).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"mlp general kernel launch failed: "
-                               f"{_build.error_string(lib, err)}")
+        _build.launch(lib, "mlp_general_fwd", x.device, x2.data_ptr(), w1.data_ptr(),
+            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(), scratch.data_ptr(), m, c,
+            f, fp32, torch.cuda.current_stream(x.device).cuda_stream)
         mlp.launches_general += 1
         return out.reshape(*lead, c)
     lib = _build.load("mlp", _SIGNATURES)
-    err = lib.mlp_fwd(x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                      b2.data_ptr(), out.data_ptr(), m, c, f,
-                      torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"mlp kernel launch failed: {_build.error_string(lib, err)}")
+    _build.launch(lib, "mlp_fwd", x.device, x2.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+        w2.data_ptr(), b2.data_ptr(), out.data_ptr(), m, c, f,
+        torch.cuda.current_stream(x.device).cuda_stream)
     mlp.launches += 1
     return out.reshape(*lead, c)
 
@@ -206,11 +201,9 @@ def mlp_bwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tenso
     grads = torch.empty(n_out, dtype=torch.float32, device=x.device)
     part = torch.empty((r, n_out), dtype=torch.float32, device=x.device)
     lib = _build.load("mlp_bwd", _BWD_SIGNATURES)
-    err = lib.mlp_bwd(x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                      dy2.data_ptr(), dx.data_ptr(), grads.data_ptr(), part.data_ptr(),
-                      m, c, f, r, torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"mlp_bwd kernel launch failed: {_build.error_string(lib, err)}")
+    _build.launch(lib, "mlp_bwd", x.device, x2.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+        w2.data_ptr(), dy2.data_ptr(), dx.data_ptr(), grads.data_ptr(), part.data_ptr(), m, c, f,
+        r, torch.cuda.current_stream(x.device).cuda_stream)
     mlp_bwd.launches += 1
     dw1, dw2, db1, db2 = grads.split([f * c, c * f, f, c])
     return dx.reshape(x.shape), dw1.view(f, c), db1, dw2.view(c, f), db2
@@ -245,12 +238,9 @@ def _general_bwd(x2, w1, b1, w2, dy2, m, c, f, x_shape):
     grads = torch.empty(2 * f * c + f + c, dtype=torch.float32, device=x2.device)
     lib = _build.load("mlp_general", _GENERAL_SIGNATURES)
     scratch = _general_scratch(lib, 1, m, c, f, r, fp32, x2.device)
-    err = lib.mlp_general_bwd(x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                              dy2.data_ptr(), dx.data_ptr(), grads.data_ptr(), scratch.data_ptr(),
-                              m, c, f, r, fp32, torch.cuda.current_stream(x2.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"mlp_bwd general kernel launch failed: "
-                           f"{_build.error_string(lib, err)}")
+    _build.launch(lib, "mlp_general_bwd", x2.device, x2.data_ptr(), w1.data_ptr(),
+        b1.data_ptr(), w2.data_ptr(), dy2.data_ptr(), dx.data_ptr(), grads.data_ptr(),
+        scratch.data_ptr(), m, c, f, r, fp32, torch.cuda.current_stream(x2.device).cuda_stream)
     mlp_bwd.launches_general += 1
     dw1, dw2, db1, db2 = grads.split([f * c, c * f, f, c])
     return dx.reshape(x_shape), dw1.view(f, c), db1, dw2.view(c, f), db2
@@ -440,12 +430,9 @@ def _forward_cln(x, w1, b1, w2, b2, scale, shift, eps):
     _check_tail(x, scale, shift)
     out = torch.empty_like(x2)
     lib = _build.load("mlp_cln", _CLN_SIGNATURES)
-    err = lib.mlp_cln_fwd(x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                          b2.data_ptr(), scale.data_ptr(), shift.data_ptr(), out.data_ptr(),
-                          m, c, f, x.shape[1], float(eps),
-                          torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"mlp_cln kernel launch failed: {_build.error_string(lib, err)}")
+    _build.launch(lib, "mlp_cln_fwd", x.device, x2.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+        w2.data_ptr(), b2.data_ptr(), scale.data_ptr(), shift.data_ptr(), out.data_ptr(), m, c, f,
+        x.shape[1], float(eps), torch.cuda.current_stream(x.device).cuda_stream)
     mlp_cln.launches += 1
     return out.reshape(x.shape)
 
@@ -475,13 +462,10 @@ def mlp_cln_bwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.T
     cpart = torch.empty((m // 64, 3, c), **f32)
     cout = torch.empty(c + 2 * b * c, **f32)  # db2 | dscale | dshift
     lib = _build.load("mlp_cln_bwd", _CLN_BWD_SIGNATURES)
-    err = lib.mlp_cln_bwd(x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                          b2.data_ptr(), scale.data_ptr(), dy2.data_ptr(), dob.data_ptr(),
-                          dx.data_ptr(), grads.data_ptr(), part.data_ptr(), cpart.data_ptr(),
-                          cout.data_ptr(), m, c, f, x.shape[1], r, float(eps),
-                          torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"mlp_cln_bwd kernel launch failed: {_build.error_string(lib, err)}")
+    _build.launch(lib, "mlp_cln_bwd", x.device, x2.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+        w2.data_ptr(), b2.data_ptr(), scale.data_ptr(), dy2.data_ptr(), dob.data_ptr(),
+        dx.data_ptr(), grads.data_ptr(), part.data_ptr(), cpart.data_ptr(), cout.data_ptr(), m, c,
+        f, x.shape[1], r, float(eps), torch.cuda.current_stream(x.device).cuda_stream)
     mlp_cln_bwd.launches += 1
     dw1, dw2, db1, _ = grads.split([f * c, c * f, f, c])
     db2, dscale, dshift = cout.split([c, b * c, b * c])

@@ -156,12 +156,11 @@ def _forward(qkv: torch.Tensor, qb: torch.Tensor, bm: torch.Tensor,
         window_attention.launches_general += 1
         return out
     lib = _build.load("window_attention", _SIGNATURES)
-    err = lib.window_attention_fwd(
+    _build.launch(
+        lib, "window_attention_fwd", qkv.device,
         qkv.data_ptr(), qb.data_ptr(), bm.data_ptr(), scale.data_ptr(),
         out.data_ptr(), n, t, heads, d, nw,
         torch.cuda.current_stream(qkv.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"window_attention kernel launch failed: {_build.error_string(lib, err)}")
     window_attention.launches += 1
     return out
 
@@ -260,13 +259,11 @@ def window_attention_bwd(qkv: torch.Tensor, qb: torch.Tensor, bm: torch.Tensor,
         return (dqkv,) + f32
     g, f32 = _bwd_scratch(n, t, heads, d, nw, qkv.device)
     lib = _build.load("window_attention_bwd", _BWD_SIGNATURES)
-    err = lib.window_attention_bwd(
+    _build.launch(
+        lib, "window_attention_bwd", qkv.device,
         qkv.data_ptr(), qb.data_ptr(), bm.data_ptr(), scale.data_ptr(), do.data_ptr(),
         dqkv.data_ptr(), *(a.data_ptr() for a in f32),
         n, t, heads, d, nw, g, torch.cuda.current_stream(qkv.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"window_attention_bwd kernel launch failed: "
-                           f"{_build.error_string(lib, err)}")
     window_attention_bwd.launches += 1
     dqb, dbm, dscale = f32[:3]
     return dqkv, dqb, dbm, dscale
@@ -297,13 +294,11 @@ def _general_fwd(ptrs, ld, qb, bm, scale, out, n, t, heads, d, nw):
     """Launch the general forward kernel on q/k/v at the data pointers
     ``ptrs`` (row stride ``ld``) into ``out`` (N, T, C); ``qb`` may be None."""
     lib = _build.load("window_attention_general", _GENERAL_SIGNATURES)
-    err = lib.window_attention_general_fwd(
+    _build.launch(
+        lib, "window_attention_general_fwd", out.device,
         *ptrs, None if qb is None else qb.data_ptr(), bm.data_ptr(), scale.data_ptr(),
         out.data_ptr(), ld, heads * d, n, t, heads, d, nw, int(out.dtype == torch.float32),
         torch.cuda.current_stream(out.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"window_attention general kernel launch failed: "
-                           f"{_build.error_string(lib, err)}")
 
 
 def general_bwd_plan(n: int, nw: int, heads: int, t: int):
@@ -334,14 +329,12 @@ def _general_bwd(ptrs, dptrs, ld, qb, bm, scale, do, n, t, heads, d, nw):
     part = torch.empty(n * heads * -(-t // 64) * (d + 1), **f32)  # per-CTA dqb | dscale
     part_bm = torch.empty((groups, nw, heads, t, t), **f32)       # per-group dbm
     lib = _build.load("window_attention_general", _GENERAL_SIGNATURES)
-    err = lib.window_attention_general_bwd(
+    _build.launch(
+        lib, "window_attention_general_bwd", do.device,
         *ptrs, None if qb is None else qb.data_ptr(), bm.data_ptr(), scale.data_ptr(),
         do.data_ptr(), *dptrs, dqb.data_ptr(), dbm.data_ptr(), dscale.data_ptr(),
         stats.data_ptr(), part.data_ptr(), part_bm.data_ptr(), ld, n, t, heads, d, nw, groups,
         int(do.dtype == torch.float32), torch.cuda.current_stream(do.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"window_attention_bwd general kernel launch failed: "
-                           f"{_build.error_string(lib, err)}")
     return dqb, dbm, dscale
 
 
@@ -440,12 +433,10 @@ def _forward_sep(q, k, v, bm, scale):
         fused_window_attention.launches_general += 1
         return out
     lib = _build.load("window_attention", _SIGNATURES)
-    err = lib.fused_window_attention_fwd(
+    _build.launch(
+        lib, "fused_window_attention_fwd", q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bm.data_ptr(), scale.data_ptr(),
         out.data_ptr(), n, t, heads, d, nw, torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"fused_window_attention kernel launch failed: "
-                           f"{_build.error_string(lib, err)}")
     fused_window_attention.launches += 1
     return out
 
@@ -471,14 +462,12 @@ def fused_window_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
         return dq, dk, dv, dbm, dscale
     g, f32 = _bwd_scratch(n, t, heads, d, nw, q.device)
     lib = _build.load("window_attention_bwd", _BWD_SIGNATURES)
-    err = lib.fused_window_attention_bwd(
+    _build.launch(
+        lib, "fused_window_attention_bwd", q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bm.data_ptr(), scale.data_ptr(),
         do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         *(a.data_ptr() for a in f32), n, t, heads, d, nw, g,
         torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"fused_window_attention_bwd kernel launch failed: "
-                           f"{_build.error_string(lib, err)}")
     fused_window_attention_bwd.launches += 1
     return dq, dk, dv, f32[1], f32[2]
 

@@ -14,12 +14,20 @@ post-training test protocol (direct and AR, in and out of distribution).
 Usage:
     python -m poseidon_tpu_torch.train --config run.json \\
         --data_path /data --checkpoint_path /ckpts [--device cpu]
+    torchrun --nproc_per_node N -m poseidon_tpu_torch.train --config run.json \\
+        --data_path /data --checkpoint_path /ckpts
 
 The run directory is ``<checkpoint_path>/<project>/[<sweep>/]<run>``. It
 trains on one device (``--device``, default ``cuda``; raises without a
-card); ``batch_size`` is per device, as in the reference. W&B is used only
-when ``--wandb_run_name`` or ``WANDB_SWEEP_ID`` is given and ``wandb`` can
-start a run; otherwise the log is ``logs.jsonl`` in the run directory.
+card), or under ``torchrun`` on one card per process (NCCL; gloo with
+``--device cpu``): a (data, model) mesh of ``world / num_model_shards`` x
+``num_model_shards`` (the config's ``num_model_shards``, default 1: data
+parallel), as the JAX package's mesh. ``batch_size`` is per device, as in
+the reference: the global batch is ``batch_size * world /
+num_model_shards``. Process 0 writes the run directory and the log. W&B is
+used only when ``--wandb_run_name`` or ``WANDB_SWEEP_ID`` is given and
+``wandb`` can start a run; otherwise the log is ``logs.jsonl`` in the run
+directory.
 """
 
 from __future__ import annotations
@@ -39,10 +47,9 @@ from .config import MODEL_MAP, ScOTConfig
 from .data.base import BaseTimeDataset, ConcatDataset
 from .data.registry import get_dataset
 from .metrics import ChannelGroupMetrics
-from .models.scot import build_model
-from .parallel.host import broadcast_object, is_primary
+from .models.scot import ScOT, build_model
+from .parallel.host import broadcast_object, initialize_distributed, is_primary, process_count
 from .training import Trainer, TrainingArguments
-from .utils.device import resolve_device
 from .utils.params import get_num_parameters, get_num_parameters_no_embed
 
 SEED = 0
@@ -206,7 +213,7 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default; raises without a card) or cpu")
     params = parser.parse_args(argv)
-    device = resolve_device(params.device)
+    device = initialize_distributed(params.device)
 
     np.random.seed(SEED)
     config = load_config(params)
@@ -250,10 +257,11 @@ def main(argv=None):
     else:
         model_config = build_model_config(config, train_ds, time_involved)
 
-    # batch_size is per device, as in the reference; one device (multi-GPU
-    # data parallel is ROADMAP queue 1).
+    # batch_size is per device, as in the reference (train.py:280 passes it
+    # to per_device_train_batch_size under accelerate); the Trainer takes the
+    # global batch: the ranks of one model group share their rows.
     num_model_shards = int(config.get("num_model_shards", 1))
-    dp_size = 1
+    dp_size = max(process_count() // num_model_shards, 1)
     global_batch = int(config["batch_size"]) * dp_size
     finetune = params.finetune_from is not None
 
@@ -313,13 +321,19 @@ def main(argv=None):
     trainer.train(resume_from_checkpoint=params.resume_training)
     trainer.save_model(ckpt_dir)
 
+    # Under FSDP the whole weights are gathered (every rank takes part).
+    export_sd = trainer.model_state_dict() if params.push_to_hf_hub is not None else None
     if params.push_to_hf_hub is not None and is_primary():
         # A reference-format export, uploaded when the Hub can be reached
         # (the export stays either way).
         from .hub import push_to_hub, save_pretrained
 
         export_dir = os.path.join(ckpt_dir, "hub_export")
-        save_pretrained(trainer.model, export_dir)
+        export = trainer.model
+        if trainer.sharded:
+            export = ScOT(trainer.config)
+            export.load_state_dict(export_sd)
+        save_pretrained(export, export_dir)
         print(f"Exported Hub-compatible checkpoint to {export_dir}")
         if push_to_hub(params.push_to_hf_hub, export_dir):
             print(f"Pushed to HF Hub repo {params.push_to_hf_hub}")
@@ -404,3 +418,5 @@ def main(argv=None):
 
 if __name__ == "__main__":
     main()
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()

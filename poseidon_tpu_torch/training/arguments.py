@@ -1,11 +1,12 @@
 """Training arguments: ``poseidon_tpu.training.arguments.TrainingArguments``
-field for field, so that a JAX run's arguments load. ``num_model_shards >
-1`` is refused (ROADMAP queue 1, multi-GPU)."""
+field for field, so that a JAX run's arguments load."""
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
+
+from ..parallel.host import process_count
 
 
 @dataclasses.dataclass
@@ -58,8 +59,9 @@ class TrainingArguments:
     # optimizer state stay fp32. Read by whoever builds the model
     # (``build_model(..., dtype=...)``), not by the Trainer.
     compute_dtype: str = "bfloat16"
-    # Parameter sharding over a model axis (FSDP): the port runs on one card
-    # and refuses values above 1 (ROADMAP queue 1, multi-GPU).
+    # Parameter sharding over a model axis: the processes form a (data,
+    # model) mesh of world / num_model_shards x num_model_shards (FSDP over
+    # ``model``, replicated over ``data``); must divide the world size.
     num_model_shards: int = 1
     # Recompute each Swin block in the backward. As in the JAX package the
     # Trainer only carries the flag: whoever builds the model passes it as
@@ -75,9 +77,10 @@ class TrainingArguments:
     profile_step_stop: Optional[int] = None
 
     def __post_init__(self):
-        if self.num_model_shards > 1:
-            raise ValueError(f"num_model_shards={self.num_model_shards}: the port trains on one "
-                             f"card; parameter sharding is ROADMAP queue 1 (multi-GPU)")
+        world = process_count()
+        if self.num_model_shards < 1 or world % self.num_model_shards:
+            raise ValueError(f"num_model_shards={self.num_model_shards} does not divide the "
+                             f"world size {world}")
         if self.compute_dtype not in ("bfloat16", "float32"):
             raise ValueError(f"compute_dtype must be 'bfloat16' or 'float32', got "
                              f"{self.compute_dtype!r}")

@@ -21,6 +21,7 @@ import math
 from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 from ..models.layers import ConditionalLayerNorm, PlainLayerNorm
@@ -143,13 +144,33 @@ def build_optimizer(
     return optimizer, torch.optim.lr_scheduler.LambdaLR(optimizer, schedules)
 
 
+def _local(g: torch.Tensor) -> torch.Tensor:
+    """The rows of ``g`` this process holds: a DTensor's local shard (a
+    view: writing it writes the gradient), else ``g``."""
+    from torch.distributed.tensor import DTensor
+
+    return g.to_local() if isinstance(g, DTensor) else g
+
+
 @torch.no_grad()
 def global_norm(params: Iterable[torch.Tensor]) -> torch.Tensor:
-    """optax.global_norm of the gradients: sqrt of the sum of squares, fp32."""
+    """optax.global_norm of the gradients: sqrt of the sum of squares, fp32.
+    Gradients sharded as DTensors (FSDP: one mesh, one placement for all)
+    count their local shards, summed over the mesh dims they are sharded
+    on, so every rank gets the norm of the whole gradient."""
     grads = [p.grad for p in params if p.grad is not None]
     if not grads:
         return torch.zeros(())
-    return torch.sqrt(sum(g.float().pow(2).sum() for g in grads))
+    sharded = [g for g in grads if _local(g) is not g]
+    total = sum(g.float().pow(2).sum() for g in grads if _local(g) is g)
+    if sharded:
+        sq = sum(_local(g).float().pow(2).sum() for g in sharded)
+        mesh = sharded[0].device_mesh
+        for dim, placement in enumerate(sharded[0].placements):
+            if placement.is_shard():
+                dist.all_reduce(sq, group=mesh.get_group(dim))
+        total = total + sq
+    return torch.sqrt(total)
 
 
 @torch.no_grad()
@@ -162,5 +183,6 @@ def clip_by_global_norm(params: Iterable[torch.Tensor], max_norm: float) -> torc
     norm = global_norm(params)
     keep = norm < max_norm   # a device tensor: no host synchronisation
     for p in params:
-        p.grad.copy_(torch.where(keep, p.grad, (p.grad / norm.to(p.grad.dtype)) * max_norm))
+        g = _local(p.grad)
+        g.copy_(torch.where(keep, g, (g / norm.to(g.dtype)) * max_norm))
     return norm

@@ -1,5 +1,6 @@
 """The Trainer: ``poseidon_tpu.training.trainer.Trainer`` in PyTorch, on one
-card (or the CPU when the caller asks for it).
+card (or the CPU when the caller asks for it), or one process per card
+under ``torchrun`` over the (data, model) mesh of ``parallel/mesh.py``.
 
 - ``train``: epochs over the deterministic loader, the train step, the
   epoch's ``train_loss`` summed on the device, delayed step logging (the
@@ -17,12 +18,27 @@ card (or the CPU when the caller asks for it).
   ``torch.Generator`` on the device seeded from (seed, s) (and the rollout
   step index in AR training), in place of ``jax.random.fold_in``. With the
   deterministic loader, a run resumed from a checkpoint takes the steps the
-  uninterrupted run took.
+  uninterrupted run took. Under data parallelism the data index joins the
+  seed, so that the ranks draw different masks for their different rows:
+  the masks (never equal to JAX's anyway) then differ from a one-process
+  run's; with dropout and drop-path off a data-parallel run computes what
+  one process does at the same global batch.
 - Checkpoints are ``torch.save`` of state dicts (model with its BatchNorm
   buffers, optimizer, scheduler), the step, the epoch's loss sum and meta
-  (epoch, best metric, batch index). A checkpoint is written under a
-  temporary name and renamed into place, so a partial write is never taken
-  for one.
+  (epoch, best metric, batch index), written by process 0, with a barrier
+  after every write. A checkpoint is written under a temporary name and
+  renamed into place, so a partial write is never taken for one. Under FSDP
+  the full state is gathered to process 0 first, in the same format, so a
+  checkpoint resumes at any world size.
+- Data parallelism (a process group started, e.g. by
+  ``parallel.initialize_distributed``): the ``(data, model)`` mesh of
+  ``num_model_shards``; ``DistributedDataParallel`` over ``data`` when the
+  model axis is 1, else FSDP2 ``fully_shard`` per ``SwinBlock`` and at the
+  root over the 2-D mesh (HSDP). Each rank loads its rows of every global
+  batch. The loss is each rank's share of the global batch's loss
+  (``scot_loss(..., group=)``), BatchNorm's statistics are the global
+  batch's, evaluation gathers every rank's predictions, and the logged
+  losses and norms are the global ones.
 - The host-to-device copy of batch N+1 (pinned memory, a side stream) runs
   while step N computes.
 """
@@ -39,10 +55,13 @@ from typing import Callable, Dict, Iterator, List, Mapping, Optional, Sequence, 
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.loader import DataLoader
-from ..models.scot import ScOT, apply_pixel_mask, scot_loss
-from ..parallel.host import is_primary, process_count, process_index
+from ..models.layers import BatchNorm
+from ..models.scot import ScOT, SwinBlock, apply_pixel_mask, scot_loss
+from ..parallel.host import is_primary, process_count, sync_hosts
+from ..parallel.mesh import gather_rows, make_mesh
 from ..utils.device import resolve_device
 from .arguments import TrainingArguments
 from .optimizer import build_optimizer, clip_by_global_norm, global_norm
@@ -54,18 +73,27 @@ CHECKPOINT_FILE = "state.pt"
 
 
 def _direct_loss(model: ScOT, batch: Mapping[str, torch.Tensor],
-                 generator: Optional[torch.Generator]) -> torch.Tensor:
+                 generator: Optional[torch.Generator], group=None) -> torch.Tensor:
     labels = batch["labels"]
     pred = model(batch["pixel_values"], batch.get("time"), generator=generator)
     pred = apply_pixel_mask(pred, labels, batch.get("pixel_mask"))
-    return scot_loss(pred, labels, model.config)
+    return scot_loss(pred, labels, _config(model), group=group)
+
+
+def _config(model: torch.nn.Module):
+    """The ScOT config of ``model``, or of the module a DDP wrapper holds."""
+    return getattr(model, "module", model).config
+
+
+def _data_size(group) -> int:
+    return dist.get_world_size(group) if group is not None else 1
 
 
 def train_step(model: ScOT, optimizer: torch.optim.Optimizer,
                scheduler: torch.optim.lr_scheduler.LRScheduler,
                batch: Mapping[str, torch.Tensor], *, max_grad_norm: Optional[float],
                generator: Optional[torch.Generator] = None,
-               loss_fn: Optional[LossFn] = None) -> Dict[str, torch.Tensor]:
+               loss_fn: Optional[LossFn] = None, group=None) -> Dict[str, torch.Tensor]:
     """One optimizer step on ``batch`` (``pixel_values``, ``labels``, and
     optionally ``time`` and ``pixel_mask``), with the model in train mode:
     the loss (by default the direct branch: forward with dropout and
@@ -76,10 +104,20 @@ def train_step(model: ScOT, optimizer: torch.optim.Optimizer,
     positive) -> ``optimizer.step()`` -> ``scheduler.step()`` -> gradients
     set to None. Returns the loss and the norm before clipping, as device
     tensors (reading them synchronises): what ``Trainer._train_step``
-    returns in the JAX package."""
+    returns in the JAX package.
+
+    ``group``: the data axis's process group, when ``batch`` is this
+    process's rows of a global batch split over it (``model`` wrapped in
+    DDP, or sharded by FSDP). The loss (``loss_fn``'s, which must then be
+    ``scot_loss(..., group=group)``'s share) is backpropagated times the
+    group's size, so that the mean DDP and FSDP take over the processes is
+    the sum of the shares' gradients: the gradient of the global batch's
+    loss. The loss returned is the sum of the shares, the global loss."""
     model.train()
-    loss = _direct_loss(model, batch, generator) if loss_fn is None else loss_fn(model, batch)
-    loss.backward()
+    n = _data_size(group)
+    loss = (_direct_loss(model, batch, generator, group) if loss_fn is None
+            else loss_fn(model, batch))
+    (loss * n if n > 1 else loss).backward()
     params = [p for p in model.parameters() if p.requires_grad]
     if max_grad_norm is not None and max_grad_norm > 0:
         gnorm = clip_by_global_norm(params, max_grad_norm)
@@ -88,7 +126,10 @@ def train_step(model: ScOT, optimizer: torch.optim.Optimizer,
     optimizer.step()
     scheduler.step()
     optimizer.zero_grad(set_to_none=True)
-    return {"loss": loss.detach(), "grad_norm": gnorm}
+    loss = loss.detach()
+    if n > 1:
+        dist.all_reduce(loss, group=group)
+    return {"loss": loss, "grad_norm": gnorm}
 
 
 @dataclasses.dataclass
@@ -99,19 +140,33 @@ class PredictionOutput:
     metrics: Dict[str, float]
 
 
+def _full_state():
+    """Options of a whole state dict gathered to process 0, on the CPU."""
+    from torch.distributed.checkpoint.state_dict import StateDictOptions
+
+    return StateDictOptions(full_state_dict=True, cpu_offload=True)
+
+
 class Trainer:
     """Train, evaluate and predict with a ScOT model; see the module
     docstring. ``device`` defaults to CUDA and raises when there is none
-    (pass ``device="cpu"`` for the CPU)."""
+    (pass ``device="cpu"`` for the CPU). ``mesh``: the ``(data, model)``
+    mesh (``parallel.make_mesh``); by default, when a process group is
+    started, ``make_mesh(num_model=args.num_model_shards)``. The batch
+    sizes are global and must divide by the mesh's data size."""
 
     def __init__(self, model: ScOT, args: TrainingArguments, train_dataset=None,
                  eval_dataset=None,
                  compute_metrics: Optional[Callable[[np.ndarray, np.ndarray], Dict]] = None,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None, mesh=None):
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.config = model.config
         self.args = args
+        if mesh is None and process_count() > 1:
+            mesh = make_mesh(num_model=args.num_model_shards, device_type=self.device.type)
+        self.mesh = mesh
+        self._parallelize()
         self.train_dataset = train_dataset
         self.eval_dataset = eval_dataset
         self.compute_metrics = compute_metrics
@@ -137,6 +192,45 @@ class Trainer:
         self.loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
 
     # -- setup --------------------------------------------------------------
+    def _parallelize(self):
+        """Under a mesh: check the batch sizes against its data size, give
+        the BatchNorm layers the data group, and wrap the model (DDP over
+        ``data`` when the model axis is 1, else FSDP2 over the mesh).
+        ``self.net`` is what the steps call (the DDP wrapper, or the model,
+        sharded in place by FSDP); ``self.model`` stays the ScOT module."""
+        self.net = self.model
+        self.data_group, self.data_index, self.sharded = None, 0, False
+        mesh = self.mesh
+        if mesh is None:
+            return
+        data_size = mesh["data"].size()
+        for name in ("train_batch_size", "eval_batch_size"):
+            if getattr(self.args, name) % data_size:
+                raise ValueError(f"{name}={getattr(self.args, name)} must be divisible by the "
+                                 f"data-parallel mesh size ({data_size} devices)")
+        self.data_index = mesh.get_local_rank("data")
+        if data_size > 1:
+            self.data_group = mesh.get_group("data")
+            for m in self.model.modules():
+                if isinstance(m, BatchNorm):
+                    m.process_group = self.data_group
+        if mesh["model"].size() > 1:
+            from torch.distributed.fsdp import fully_shard
+
+            for m in self.model.modules():
+                if isinstance(m, SwinBlock):
+                    fully_shard(m, mesh=mesh)
+            fully_shard(self.model, mesh=mesh)
+            self.sharded = True
+        elif data_size > 1:
+            from torch.nn.parallel import DistributedDataParallel
+
+            # BatchNorm's statistics are the global batch's, so its buffers
+            # agree on every rank without DDP's broadcast.
+            self.net = DistributedDataParallel(
+                self.model, device_ids=[self.device] if self.device.type == "cuda" else None,
+                process_group=self.data_group, broadcast_buffers=False, static_graph=True)
+
     def _steps_per_epoch(self) -> int:
         return max(len(self.train_dataset) // self.args.train_batch_size, 1)
 
@@ -149,7 +243,10 @@ class Trainer:
         self.output_all_steps = bool(ar_steps is not None and self._want_all_steps)
 
     def _generator(self, *keys: int) -> torch.Generator:
-        """A generator on the device seeded from (seed, *keys)."""
+        """A generator on the device seeded from (seed, *keys), and the data
+        index under data parallelism (the ranks hold different rows)."""
+        if self.data_group is not None:
+            keys = keys + (self.data_index,)
         seed = int(np.random.SeedSequence([self.args.seed, *keys]).generate_state(1)[0])
         return torch.Generator(device=self.device).manual_seed(seed)
 
@@ -163,8 +260,9 @@ class Trainer:
         mode; in train mode step i draws its masks from the generator of
         (seed, ``step``, i) and BatchNorm statistics update step after step.
         Under ``output_all_steps`` the prediction is every step's,
-        (B, n, C, H, W)."""
-        cfg, model = self.config, self.model
+        (B, n, C, H, W). Under data parallelism the loss is this rank's
+        share of the global batch's (``scot_loss(..., group=)``)."""
+        cfg, model, group = self.config, self.net, self.data_group
         model.train(train)
         labels, pixel_mask = batch["labels"], batch.get("pixel_mask")
         if self.ar_steps is not None and batch.get("time") is not None:
@@ -176,7 +274,7 @@ class Trainer:
                 ar_step, batch["pixel_values"], batch["time"], self.ar_steps,
                 cfg.num_out_channels)
             losses = [scot_loss(apply_pixel_mask(preds[:, i], labels, pixel_mask), labels, cfg,
-                                sample_weights=sample_weights)
+                                sample_weights=sample_weights, group=group)
                       for i in range(preds.shape[1])]
             loss = torch.stack(losses).mean()
             if self.output_all_steps:
@@ -185,15 +283,17 @@ class Trainer:
         gen = self._generator(step) if train and step is not None else None
         pred = model(batch["pixel_values"], batch.get("time"), generator=gen)
         pred = apply_pixel_mask(pred, labels, pixel_mask)
-        return scot_loss(pred, labels, cfg, sample_weights=sample_weights), pred
+        return scot_loss(pred, labels, cfg, sample_weights=sample_weights, group=group), pred
 
     def _train_step(self, batch: Mapping[str, torch.Tensor],
                     global_step: int) -> Dict[str, torch.Tensor]:
         """One step, its masks drawn from the generator of (seed,
-        ``global_step``); the loss joins the epoch's sum on the device."""
-        out = train_step(self.model, self.optimizer, self.scheduler, batch,
+        ``global_step``); the (global) loss joins the epoch's sum on the
+        device."""
+        out = train_step(self.net, self.optimizer, self.scheduler, batch,
                          max_grad_norm=self.args.max_grad_norm,
-                         loss_fn=lambda m, b: self._loss_and_pred(b, True, global_step)[0])
+                         loss_fn=lambda m, b: self._loss_and_pred(b, True, global_step)[0],
+                         group=self.data_group)
         self.loss_sum += out["loss"].float()
         self.step += 1
         return out
@@ -235,6 +335,11 @@ class Trainer:
             if fut is not None:
                 yield ready(fut.result())
 
+    def _hosts(self) -> Dict[str, int]:
+        """The loader's host split: one host per data index (the ranks of a
+        model group load the same rows)."""
+        return {"num_hosts": _data_size(self.data_group), "host_id": self.data_index}
+
     # -- loops --------------------------------------------------------------
     def train(self, resume_from_checkpoint: Optional[bool] = None) -> List[Dict]:
         a = self.args
@@ -243,8 +348,7 @@ class Trainer:
         os.makedirs(a.output_dir, exist_ok=True)
         self._open_logging()
         loader = DataLoader(self.train_dataset, a.train_batch_size, shuffle=True, seed=a.seed,
-                            drop_last=True, num_hosts=process_count(), host_id=process_index(),
-                            num_workers=a.num_workers)
+                            drop_last=True, **self._hosts(), num_workers=a.num_workers)
         start_epoch, start_batch = 0, 0
         best_metric = np.inf if not a.greater_is_better else -np.inf
         patience_left = a.early_stopping_patience
@@ -345,21 +449,30 @@ class Trainer:
         is queued before step N's values are read."""
         a = self.args
         loader = DataLoader(dataset, a.eval_batch_size, shuffle=False, drop_last=False,
-                            num_hosts=process_count(), host_id=process_index(),
-                            num_workers=a.num_workers)
+                            **self._hosts(), num_workers=a.num_workers)
+        group = self.data_group
 
         def fetch(loss, pred, labels, valid):
+            if group is not None:
+                # Every rank gets the whole global batch, in rank order, cut
+                # to the global valid count (the JAX package's _to_host).
+                pred, labels = gather_rows(pred, group), gather_rows(labels, group).cpu().numpy()
             return pred[:valid].float().cpu().numpy(), labels[:valid], float(loss), valid
 
         pending = None
         for batch, dbatch in self._device_prefetch(loader.epoch(0)):
-            valid = int(batch["_valid"])
+            valid = int(batch.get("_valid_global", batch["_valid"]))
             b = dbatch["pixel_values"].shape[0]
-            weights = (torch.arange(b, device=self.device)
-                       < int(batch.get("_valid_global", valid))).float()
+            # The rows' indices in the global batch: padding is masked out
+            # of the loss on every rank.
+            rows = torch.arange(b, device=self.device) + self.data_index * b
+            weights = (rows < valid).float()
             with torch.no_grad():
                 loss, pred = self._loss_and_pred(dbatch, False, sample_weights=weights)
-            nxt = (loss, pred, np.asarray(batch["labels"]), valid)
+            if group is not None:
+                dist.all_reduce(loss, group=group)
+            labels = dbatch["labels"] if group is not None else np.asarray(batch["labels"])
+            nxt = (loss, pred, labels, valid)
             if pending is not None:
                 yield fetch(*pending)
             pending = nxt
@@ -414,9 +527,64 @@ class Trainer:
         return PredictionOutput(preds, labels, metrics)
 
     # -- checkpointing ------------------------------------------------------
+    def model_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The model's whole state dict (BatchNorm buffers included). Under
+        FSDP the shards are gathered: every rank must call it, and process
+        0 gets the tensors, on the CPU (the others an empty dict)."""
+        if not self.sharded:
+            return self.model.state_dict()
+        from torch.distributed.checkpoint.state_dict import get_model_state_dict
+
+        return get_model_state_dict(self.model, options=_full_state())
+
+    def _param_names(self) -> List[str]:
+        """The parameters' names in the optimizer's order: the numbering of
+        ``optimizer.state_dict()``."""
+        names = {p: n for n, p in self.model.named_parameters()}
+        return [names[p] for g in self.optimizer.param_groups for p in g["params"]]
+
+    def _optimizer_state_dict(self) -> Optional[Dict]:
+        """``optimizer.state_dict()``; under FSDP the whole state gathered to
+        process 0 (every rank must call it) and numbered as one process
+        numbers it, so that a checkpoint resumes at any world size."""
+        if self.optimizer is None:
+            return None
+        if not self.sharded:
+            return self.optimizer.state_dict()
+        from torch.distributed.checkpoint.state_dict import get_optimizer_state_dict
+
+        osd = get_optimizer_state_dict(self.model, self.optimizer, options=_full_state())
+        if not osd:
+            return None
+        index = {n: i for i, n in enumerate(self._param_names())}
+        return {"state": {index[n]: v for n, v in osd["state"].items()},
+                "param_groups": [{**g, "params": [index[n] for n in g["params"]]}
+                                 for g in osd["param_groups"]]}
+
+    def _load_states(self, model_sd: Dict, optimizer_sd: Optional[Dict] = None):
+        """Load a whole state dict (every rank passes the same) into the
+        model and, when given, the optimizer; under FSDP each rank keeps its
+        shards."""
+        if not self.sharded:
+            self.model.load_state_dict(model_sd)
+            if optimizer_sd is not None:
+                self.optimizer.load_state_dict(optimizer_sd)
+            return
+        from torch.distributed.checkpoint.state_dict import (
+            StateDictOptions, set_model_state_dict, set_optimizer_state_dict)
+
+        opts = StateDictOptions(full_state_dict=True)
+        set_model_state_dict(self.model, model_sd, options=opts)
+        if optimizer_sd is not None:
+            names = self._param_names()
+            osd = {"state": {names[i]: v for i, v in optimizer_sd["state"].items()},
+                   "param_groups": [{**g, "params": [names[i] for i in g["params"]]}
+                                    for g in optimizer_sd["param_groups"]]}
+            set_optimizer_state_dict(self.model, self.optimizer, osd, options=opts)
+
     def _state(self, epoch: int, best_metric: float, batch_index: int = 0) -> Dict:
-        return {"model": self.model.state_dict(),
-                "optimizer": self.optimizer.state_dict() if self.optimizer else None,
+        return {"model": self.model_state_dict(),
+                "optimizer": self._optimizer_state_dict(),
                 "scheduler": self.scheduler.state_dict() if self.scheduler else None,
                 "step": self.step, "loss_sum": self.loss_sum,
                 # batch_index 0: the epoch is complete; > 0: optimizer steps
@@ -468,15 +636,18 @@ class Trainer:
             name = f"checkpoint-{epoch}-step{batch_index}"
         else:
             name = f"checkpoint-{epoch}"
-        if not is_primary():
-            return
-        state = self._state(epoch, best_metric, batch_index)
-        self._write_dir(os.path.join(out_dir, name),
-                        {CHECKPOINT_FILE: lambda p: torch.save(state, p)})
-        if not best:
-            keep = self.args.save_total_limit
-            for d in self._list_checkpoints(out_dir)[:-keep] if keep else []:
-                shutil.rmtree(os.path.join(out_dir, d), ignore_errors=True)
+        # Under FSDP gathering the state is collective: every rank takes part.
+        if is_primary() or self.sharded:
+            state = self._state(epoch, best_metric, batch_index)
+        if is_primary():
+            self._write_dir(os.path.join(out_dir, name),
+                            {CHECKPOINT_FILE: lambda p: torch.save(state, p)})
+            if not best:
+                keep = self.args.save_total_limit
+                for d in self._list_checkpoints(out_dir)[:-keep] if keep else []:
+                    shutil.rmtree(os.path.join(out_dir, d), ignore_errors=True)
+        # No rank reads a checkpoint before process 0 has written it.
+        sync_hosts("checkpoint")
 
     def _read_state(self, path: str) -> Dict:
         return torch.load(os.path.join(path, CHECKPOINT_FILE), map_location=self.device,
@@ -490,9 +661,9 @@ class Trainer:
         if not cks:
             return None
         state = self._read_state(os.path.join(out_dir, cks[-1]))
-        self.model.load_state_dict(state["model"])
-        if self.optimizer is not None and state["optimizer"] is not None:
-            self.optimizer.load_state_dict(state["optimizer"])
+        resume = self.optimizer is not None and state["optimizer"] is not None
+        self._load_states(state["model"], state["optimizer"] if resume else None)
+        if resume:
             self.scheduler.load_state_dict(state["scheduler"])
         self.step = int(state["step"])
         self.loss_sum = state["loss_sum"].to(self.device)
@@ -504,19 +675,21 @@ class Trainer:
     def _load_best(self, out_dir: str):
         path = os.path.join(out_dir, "best")
         if os.path.isfile(os.path.join(path, CHECKPOINT_FILE)):
-            self.model.load_state_dict(self._read_state(path)["model"])
+            self._load_states(self._read_state(path)["model"])
 
     def save_model(self, out_dir: str):
         """The final weights (``model/state_dict.pt``, with the BatchNorm
-        buffers) and ``config.json``."""
-        if not is_primary():
-            return
-        os.makedirs(out_dir, exist_ok=True)
-        sd = {k: v.detach().cpu() for k, v in self.model.state_dict().items()}
-        self._write_dir(os.path.join(out_dir, "model"),
-                        {"state_dict.pt": lambda p: torch.save(sd, p)})
-        with open(os.path.join(out_dir, "config.json"), "w") as f:
-            f.write(self.config.to_json())
+        buffers) and ``config.json``, written by process 0; every rank
+        calls it."""
+        sd = self.model_state_dict()
+        if is_primary():
+            os.makedirs(out_dir, exist_ok=True)
+            sd = {k: v.detach().cpu() for k, v in sd.items()}
+            self._write_dir(os.path.join(out_dir, "model"),
+                            {"state_dict.pt": lambda p: torch.save(sd, p)})
+            with open(os.path.join(out_dir, "config.json"), "w") as f:
+                f.write(self.config.to_json())
+        sync_hosts("save_model")
 
     # -- profiling ----------------------------------------------------------
     def _maybe_profile(self, global_step: int):

@@ -49,3 +49,21 @@ def test_two_process_gloo_group():
         assert not p.is_alive() and p.exitcode == 0
     assert results == [(0, 0, 2, True, {"rank": 0, "path": "/ckpt/0"}),
                        (1, 1, 2, False, {"rank": 0, "path": "/ckpt/0"})]
+
+
+def test_initialize_distributed_without_launcher(monkeypatch):
+    """Without torchrun's environment nothing is started; a CUDA request
+    (the default) without a card raises, and is never run on the CPU. The
+    launched case is tests/test_torch_cli_torchrun.py's."""
+    import pytest
+    import torch
+    import torch.distributed as dist
+
+    for k in host.TORCHRUN_ENV:
+        monkeypatch.delenv(k, raising=False)
+    assert host.initialize_distributed("cpu") == torch.device("cpu")
+    assert not dist.is_initialized() and host.process_count() == 1
+    if not torch.cuda.is_available():
+        for dev in (None, "cuda"):
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                host.initialize_distributed(dev)

@@ -49,6 +49,7 @@ def test_imports_with_jax_blocked():
             "import poseidon_tpu_torch.ops.window_attention, poseidon_tpu_torch.training.rollout\n"
             "import poseidon_tpu_torch.training.optimizer, poseidon_tpu_torch.training.trainer\n"
             "import poseidon_tpu_torch.metrics, poseidon_tpu_torch.parallel.host\n"
+            "import poseidon_tpu_torch.parallel, poseidon_tpu_torch.parallel.mesh\n"
             "import poseidon_tpu_torch.data.registry, poseidon_tpu_torch.data.loader\n"
             "import poseidon_tpu_torch.data.fluids, poseidon_tpu_torch.data.elliptic\n"
             "import poseidon_tpu_torch.data.wave, poseidon_tpu_torch.data.reaction_diffusion\n"

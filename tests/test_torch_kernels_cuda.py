@@ -492,3 +492,44 @@ def test_remat_step_through_kernels_matches_plain_step():
         assert _rel(g1[k], g0[k]) <= 1e-6 or torch.equal(g1[k], g0[k]), k
     assert a0 == 2 * sum(cfg.depths) and a1 == 2 * a0
     assert m0 > 0 and m1 == 2 * m0
+
+
+@pytest.mark.cuda
+def test_two_rank_ddp_step_on_one_card(tmp_path):
+    """The Trainer's data-parallel step on the card: two processes on one
+    card over gloo (DDP on CUDA tensors), each with four rows of a global
+    batch of 8, against the one-process step on all eight (seeded ScOT-T
+    shapes at 64 x 64, fp32 on the general kernels): the loss and grad
+    norm within 1e-4 relative, the parameters after the AdamW step within
+    relative L2 1e-5 and 1e-6 each (another summation order), both ranks
+    bit-identical, and each rank's kernels launched (ScOT-T's attention and
+    MLP: one forward and one backward a block)."""
+    _needs_card()
+    import _torch_dist as td
+    import poseidon_tpu_torch as pt
+
+    cfg = pt.make_config("T", image_size=64, num_channels=2, num_out_channels=2,
+                         channel_slice_list=(0, 1, 2), use_conditioning=True,
+                         attention_impl="pallas", window_size=8, depths=(2, 2),
+                         num_heads=(3, 6), skip_connections=(2, 0))
+    state = pt.build_model(cfg, device="cpu", seed=0).state_dict()
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(8, 2, 64, 64)).astype(np.float32)
+    batch = {"pixel_values": x, "labels": (x * rng.uniform(0.5, 5, (8, 1, 1, 1))).astype(np.float32),
+             "time": rng.uniform(0.1, 1, 8).astype(np.float32)}
+    ranks = td.run_ranks("_torch_dist:one_step", 2, tmp_path, timeout=300, config=cfg.to_dict(),
+                         state=state, batch=batch, device="cuda")
+    ref = td.one_step(cfg.to_dict(), state, batch, device="cuda")
+    for r in ranks:
+        np.testing.assert_allclose([r["loss"], r["grad_norm"]], [ref["loss"], ref["grad_norm"]],
+                                   rtol=1e-4)
+        assert r["launches"]["window_attention_general_fwd"] == sum(cfg.depths) * 2
+        assert r["launches"]["window_attention_general_bwd"] == sum(cfg.depths) * 2
+    for k in ref["model"]:
+        assert all(torch.equal(ranks[0]["model"][k], rk["model"][k]) for rk in ranks), k
+    got = torch.cat([v.flatten() for v in ranks[0]["model"].values()])
+    want = torch.cat([v.flatten() for v in ref["model"].values()])
+    assert _rel(got, want) <= 1e-5
+    # Every element within a thousandth of the learning rate (AdamW's first
+    # step scales the round-off of near-zero gradients up to a share of it).
+    assert float((got - want).abs().max()) <= 1e-6

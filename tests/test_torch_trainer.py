@@ -205,9 +205,18 @@ def test_unfinished_checkpoint_is_skipped(tmp_path):
     assert pt.Trainer._list_checkpoints(str(tmp_path / "missing")) == []
 
 
-def test_refused_arguments_and_default_device():
-    with pytest.raises(ValueError, match="ROADMAP"):
+def test_refused_arguments_and_default_device(monkeypatch):
+    # num_model_shards must divide the world size (one process here; the
+    # HSDP runs: tests/test_torch_fsdp.py).
+    with pytest.raises(ValueError, match="does not divide the world size 1"):
         pt.TrainingArguments(num_model_shards=2)
+    from poseidon_tpu_torch.training import arguments
+    monkeypatch.setattr(arguments, "process_count", lambda: 4)
+    assert pt.TrainingArguments(num_model_shards=2).num_model_shards == 2
+    assert pt.TrainingArguments(num_model_shards=4).num_model_shards == 4
+    with pytest.raises(ValueError, match="does not divide the world size 4"):
+        pt.TrainingArguments(num_model_shards=3)
+    monkeypatch.undo()
     # Accepted since gradient checkpointing was ported (tests/test_torch_remat.py).
     assert pt.TrainingArguments(gradient_checkpointing=True).gradient_checkpointing
     from dataclasses import fields
