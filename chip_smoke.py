@@ -106,14 +106,19 @@ Phases, one JSON line each (any failure ends the run with a non-zero exit):
 22. data_parallel: the Trainer over a process group of worker copies of
    this script, DDP (and with two cards or more HSDP) held to one process
    (see ``phase_data_parallel``);
-23. the kernels line (with each kernel's launches in phases 18-20 and on
-   rank 0 of phase 22); 24. the device line, last.
+23. bench: ``python bench_torch.py`` in a subprocess, eager (ScOT-B b128
+   and ScOT-L b64) and with ``BENCH_SCAN=10`` (a CUDA graph of the step),
+   each JSON line checked and printed, then the graph's step held to the
+   eager step at ScOT-B b32 (see ``phase_bench``);
+24. the kernels line (with each kernel's launches in phases 18-20 and on
+   rank 0 of phase 22); 25. the device line, last.
 
     python3 chip_smoke.py --phase data_parallel   # phase 22 alone
+    python3 chip_smoke.py --phase bench           # phase 23 alone
 
-runs the data parallel phase alone, after the cards' line and the build of
-the four sources the bf16 step runs; with four cards it adds the
-throughput and memory cells (``DP_CELLS``).
+runs one phase alone, after the cards' line and the build of the four
+sources the bf16 step runs; with four cards the data parallel phase adds
+the throughput and memory cells (``DP_CELLS``).
 
 Exits non-zero without printing results when CUDA is absent.
 """
@@ -712,7 +717,7 @@ def to_layout(x, layout, pack):
             .reshape(n, h // pack, d, pack * t).contiguous())
 
 
-def phase_fused_attention(pt, wa, mlp_op, attn_mod, bound_ms, card):
+def phase_fused_attention(pt, wa, attn_mod, bound_ms, card):
     """The separate-q/k/v op ``poseidon_tpu_torch.ops.fused_window_attention``.
     First its path: the counts set to 0, then forward and backward through
     the op (autograd) at every ``attention_cases`` shape in the nthd layout and at ScOT-B stage 2 in each other layout (head packing
@@ -725,7 +730,7 @@ def phase_fused_attention(pt, wa, mlp_op, attn_mod, bound_ms, card):
         cases.append((model_name, tag, "nthd", geo))
         if model_name == "B" and tag == "stage2":
             cases += [(model_name, tag, lay, geo) for lay in ("nhtd", "nhdt", "nhdt_packed")]
-    reset_counts(wa, mlp_op)
+    reset_counts()
     path_rows = []
     for model_name, tag, layout, (n, t, heads, d, nw, window, res, shift) in cases:
         q, k, v, do, bias, mask, scale = op_case(attn_mod, n, t, heads, d, nw, window, res,
@@ -748,7 +753,7 @@ def phase_fused_attention(pt, wa, mlp_op, attn_mod, bound_ms, card):
         if not ok:
             raise SystemExit(f"fused_window_attention op disagrees at {model_name} {tag} {layout}")
         del q, k, v, do, leaves, out, ref
-    counts = read_counts(wa, mlp_op)
+    counts = read_counts()
     want = launches(fused_window_attention_fwd=len(cases), fused_window_attention_bwd=len(cases))
     ok = counts == want
     emit({"phase": "fused_attention_path", "what": "fused_window_attention forward + backward "
@@ -984,37 +989,23 @@ def phase_general_kernels(pt, wa, mlp_op, attn_mod, bound_ms, card):
 # Model and rollout
 # ---------------------------------------------------------------------------
 
-COUNTERS = (("window_attention_fwd", "window_attention", "launches"),
-            ("window_attention_bwd", "window_attention_bwd", "launches"),
-            ("fused_mlp_fwd", "mlp", "launches"), ("fused_mlp_bwd", "mlp_bwd", "launches"),
-            ("fused_window_attention_fwd", "fused_window_attention", "launches"),
-            ("fused_window_attention_bwd", "fused_window_attention_bwd", "launches"),
-            ("mlp_cln_fwd", "mlp_cln", "launches"), ("mlp_cln_bwd", "mlp_cln_bwd", "launches"),
-            ("window_attention_general_fwd", "window_attention", "launches_general"),
-            ("window_attention_general_bwd", "window_attention_bwd", "launches_general"),
-            ("fused_window_attention_general_fwd", "fused_window_attention", "launches_general"),
-            ("fused_window_attention_general_bwd", "fused_window_attention_bwd",
-             "launches_general"),
-            ("mlp_general_fwd", "mlp", "launches_general"),
-            ("mlp_general_bwd", "mlp_bwd", "launches_general"))
-
-
-def _wrapper(wa, mlp_op, attr):
-    return getattr(wa if "window" in attr else mlp_op, attr)
-
-
 def launches(**nonzero):
     """The expected counts of a run: every kernel 0 but those named."""
+    from poseidon_tpu_torch.ops import COUNTERS
+
     return {name: nonzero.get(name, 0) for name, _, _ in COUNTERS}
 
 
-def reset_counts(wa, mlp_op):
-    for _, attr, field in COUNTERS:
-        setattr(_wrapper(wa, mlp_op, attr), field, 0)
+def reset_counts():
+    from poseidon_tpu_torch.ops import reset_launch_counts
+
+    reset_launch_counts()
 
 
-def read_counts(wa, mlp_op):
-    return {name: getattr(_wrapper(wa, mlp_op, attr), field) for name, attr, field in COUNTERS}
+def read_counts():
+    from poseidon_tpu_torch.ops import launch_counts
+
+    return launch_counts()
 
 
 @torch.no_grad()
@@ -1116,10 +1107,10 @@ def phase_model(pt, wa, mlp_op, attn_mod, card, fused_tail=False, size="B",
     with torch.no_grad():
         y_plain = plain(x, t)
         torch.cuda.synchronize()
-        reset_counts(wa, mlp_op)
+        reset_counts()
         y = model(x, t)
         torch.cuda.synchronize()
-        counts = read_counts(wa, mlp_op)
+        counts = read_counts()
         fwd_ms = host_ms(lambda: model(x, t), iters=5)
         plain_fwd_ms = host_ms(lambda: plain(x, t), iters=5)
     rel = float((y.float() - y_plain.float()).norm() / y_plain.float().norm())
@@ -1157,14 +1148,14 @@ def phase_profile(model, x, t, forward_ms, card):
           "forward_ms": forward_ms, **device_time_profile(forward, forward_ms), "card": card})
 
 
-def phase_rollout(pt, wa, mlp_op, model, x, t, per_forward, card):
+def phase_rollout(pt, model, x, t, per_forward, card):
     steps = 4
     with torch.no_grad():
-        reset_counts(wa, mlp_op)
+        reset_counts()
         y = pt.autoregressive_rollout(model, x, t, ar_steps=steps, num_out_channels=4,
                                       device="cuda")
         torch.cuda.synchronize()
-        counts = read_counts(wa, mlp_op)
+        counts = read_counts()
         roll_ms = host_ms(lambda: pt.autoregressive_rollout(
             model, x, t, ar_steps=steps, num_out_channels=4, device="cuda"), iters=3, warmup=1)
     ok = (tuple(y.shape) == (BATCH, 4, 128, 128) and bool(torch.isfinite(y).all())
@@ -1191,9 +1182,8 @@ def loss_and_grads(pt, model, batch):
     """The train step's loss and gradients, without the update."""
     model.train()
     model.zero_grad(set_to_none=True)
-    pred = pt.apply_pixel_mask(model(batch["pixel_values"], batch["time"]), batch["labels"],
-                               batch["pixel_mask"])
-    loss = pt.scot_loss(pred, batch["labels"], model.config)
+    loss, _ = pt.forward_with_loss(model, batch["pixel_values"], batch["time"],
+                                   batch["labels"], batch["pixel_mask"])
     loss.backward()
     return float(loss.detach()), {n: p.grad for n, p in model.named_parameters()}
 
@@ -1229,10 +1219,10 @@ def phase_train(pt, wa, mlp_op, model, card, fused_tail=False, size="B", tol=GRA
     loss_plain, g_plain = loss_and_grads(pt, plain, batch)
     vec_plain = torch.cat([g.float().flatten() for g in g_plain.values()])
     del plain, g_plain
-    reset_counts(wa, mlp_op)
+    reset_counts()
     loss_kernel, g_kernel = loss_and_grads(pt, model, batch)
     torch.cuda.synchronize()
-    grad_counts = read_counts(wa, mlp_op)
+    grad_counts = read_counts()
     bad = [n for n, g in g_kernel.items() if g is None or not bool(torch.isfinite(g).all())]
     zero = [n for n, g in g_kernel.items()
             if n.endswith(block_grads) and g is not None and float(g.abs().max()) == 0.0]
@@ -1252,12 +1242,12 @@ def phase_train(pt, wa, mlp_op, model, card, fused_tail=False, size="B", tol=GRA
     losses, norms = [], []
     for i in range(TRAIN_STEPS):
         if i == 0:
-            reset_counts(wa, mlp_op)
+            reset_counts()
         out = step()
         losses.append(float(out["loss"]))
         norms.append(float(out["grad_norm"]))
         if i == 0:
-            step_counts = read_counts(wa, mlp_op)
+            step_counts = read_counts()
     torch.cuda.reset_peak_memory_stats()
     step_ms = host_ms(step, iters=5)
     peak = torch.cuda.max_memory_allocated()
@@ -1291,21 +1281,22 @@ def device_time_profile(fn, wall_ref_ms):
     """torch.profiler over one call of ``fn``: device busy time (sum of the
     device-side kernel and copy times), busy time by group, top kernels, and
     the idle share against ``wall_ref_ms`` (the unprofiled time: the
-    profiler's own host work stretches the profiled wall time)."""
+    profiler's own host work stretches the profiled wall time). Device
+    activity only: recording the host's ops as well multiplies the
+    profiler's own processing time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
 
-    # Device-side events only (kernels, memcpy/memset): the CPU ops that
-    # launched them carry the same time again, and so do the spans that
-    # user annotations (the optimizer's "Optimizer.step#AdamW.step") leave on
-    # the device timeline.
+    # Device-side events only (kernels, memcpy/memset): the spans that user
+    # annotations (the optimizer's "Optimizer.step#AdamW.step") leave on the
+    # device timeline carry the same time again.
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0
                and not getattr(e, "is_user_annotation", False)
@@ -1508,9 +1499,8 @@ def nondeterministic_grads(pt, model):
     model.train()
     for _ in range(2):
         model.zero_grad(set_to_none=True)
-        pred = pt.apply_pixel_mask(model(batch["pixel_values"], batch["time"]), batch["labels"],
-                                   batch["pixel_mask"])
-        pt.scot_loss(pred, batch["labels"], model.config).backward()
+        pt.forward_with_loss(model, batch["pixel_values"], batch["time"], batch["labels"],
+                             batch["pixel_mask"])[0].backward()
         grads.append({n: p.grad.clone() for n, p in model.named_parameters()
                       if p.grad is not None})
     model.zero_grad(set_to_none=True)
@@ -1577,12 +1567,12 @@ def phase_trainer(pt, wa, mlp_op, card, bare_step_ms):
         loader_ms = (time.perf_counter() - t0) * 1e3 / max(n_batches, 1)
 
         full = trainer("full", profile_step_start=1, profile_step_stop=3)
-        reset_counts(wa, mlp_op)
+        reset_counts()
         t0 = time.perf_counter()
         history = full.train()
         torch.cuda.synchronize()
         train_wall = time.perf_counter() - t0
-        counts = read_counts(wa, mlp_op)
+        counts = read_counts()
         steps = full.step
         per_step = block_launches(full.model, wa, mlp_op, backward=True)
         counts_ok = counts == {k: steps * v for k, v in per_step.items()}
@@ -1745,13 +1735,12 @@ def phase_remat(pt, wa, mlp_op, model, card):
         m.remat = mode
         m.zero_grad(set_to_none=True)
         gen = torch.Generator(device="cuda").manual_seed(11)
-        reset_counts(wa, mlp_op)
-        pred = pt.apply_pixel_mask(m(batch["pixel_values"], batch["time"], generator=gen),
-                                   batch["labels"], batch["pixel_mask"])
-        loss = pt.scot_loss(pred, batch["labels"], cfg)
+        reset_counts()
+        loss, _ = pt.forward_with_loss(m, batch["pixel_values"], batch["time"], batch["labels"],
+                                       batch["pixel_mask"], generator=gen)
         loss.backward()
         torch.cuda.synchronize()
-        counts = read_counts(wa, mlp_op)
+        counts = read_counts()
         vec = torch.cat([p.grad.float().flatten() for p in m.parameters()])
         return float(loss.detach()), vec, gen.get_state(), counts
 
@@ -1899,12 +1888,12 @@ def phase_cli_train(pt, wa, mlp_op, card, root):
     argv = ["--config", json.dumps(config), "--json_config", "--data_path", data,
             "--checkpoint_path", ckpt, "--wandb_project_name", "smoke",
             "--max_num_train_time_steps", "1", "--train_time_step_size", "2"]
-    reset_counts(wa, mlp_op)
+    reset_counts()
     t0 = time.perf_counter()
     trainer = ptrain.main(argv)
     torch.cuda.synchronize()
     train_wall = time.perf_counter() - t0
-    counts = read_counts(wa, mlp_op)
+    counts = read_counts()
     run_dir = os.path.join(ckpt, "smoke", os.listdir(os.path.join(ckpt, "smoke"))[0])
     listing = sorted(os.listdir(run_dir))
     with open(os.path.join(run_dir, "logs.jsonl")) as fh:
@@ -1956,14 +1945,14 @@ def phase_cli_train(pt, wa, mlp_op, card, root):
     ft_argv = ["--config", json.dumps(ft_config), "--json_config", "--data_path", data,
                "--checkpoint_path", os.path.join(root, "ft"), "--wandb_project_name", "smoke",
                "--finetune_from", export]
-    reset_counts(wa, mlp_op)
+    reset_counts()
     out = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
         ft = ptrain.main(ft_argv + ["--replace_embedding_recovery"])
     torch.cuda.synchronize()
     ft_wall = time.perf_counter() - t0
-    ft_counts = read_counts(wa, mlp_op)
+    ft_counts = read_counts()
     printed = next((ln for ln in out.getvalue().splitlines() if ln.startswith("Re-initialized")),
                    "")
     printed_names = set(printed.split(": ", 1)[1].split(", ")) if ": " in printed else set()
@@ -2013,7 +2002,7 @@ def _csv_rows(path):
         return list(csv.DictReader(fh))
 
 
-def phase_cli_inference(pt, wa, mlp_op, card, run_dir, data, root):
+def phase_cli_inference(pt, card, run_dir, data, root):
     """``python -m poseidon_tpu_torch.inference`` in process on the trained
     run directory, fp32 (every attention and MLP call on the general
     kernels: 64 and 32 a forward, launches counted exactly): ``eval``
@@ -2043,11 +2032,11 @@ def phase_cli_inference(pt, wa, mlp_op, card, run_dir, data, root):
         argv = ["--mode", mode, "--model_path", model, "--data_path", data, "--dataset", dataset,
                 "--file", os.path.join(out, file), "--initial_time", "0", "--final_time", "4",
                 "--batch_size", str(BATCH), *extra]
-        reset_counts(wa, mlp_op)
+        reset_counts()
         t0 = time.perf_counter()
         pinf.main(argv)
         torch.cuda.synchronize()
-        return time.perf_counter() - t0, read_counts(wa, mlp_op)
+        return time.perf_counter() - t0, read_counts()
 
     def general(n_forwards):
         return launches(window_attention_general_fwd=64 * n_forwards,
@@ -2104,7 +2093,7 @@ def phase_cli_inference(pt, wa, mlp_op, card, run_dir, data, root):
     return rows["eval"]["launches"]
 
 
-def phase_intermediates(pt, wa, mlp_op, attn_mod, card):
+def phase_intermediates(pt, attn_mod, card):
     """``forward_with_intermediates`` on ScOT-B fp32 at batch 8 (weights of
     the model phase's recipe): the prediction against the kernel-path
     forward (relative L2 <= FP32_REL_TOL), 8 hidden states of the stages'
@@ -2123,20 +2112,20 @@ def phase_intermediates(pt, wa, mlp_op, attn_mod, card):
     x = torch.randn(b, 4, 128, 128, generator=gen).to("cuda")
     t = torch.full((b,), 0.5, device="cuda")
     with torch.no_grad():
-        reset_counts(wa, mlp_op)
+        reset_counts()
         ref = model(x, t)
         torch.cuda.synchronize()
-        before = read_counts(wa, mlp_op)
-        reset_counts(wa, mlp_op)
+        before = read_counts()
+        reset_counts()
         t0 = time.perf_counter()
         pred, hs, att = pt.forward_with_intermediates(model, x, t)
         torch.cuda.synchronize()
         call_s = time.perf_counter() - t0
-        during = read_counts(wa, mlp_op)
-        reset_counts(wa, mlp_op)
+        during = read_counts()
+        reset_counts()
         again = model(x, t)
         torch.cuda.synchronize()
-        after = read_counts(wa, mlp_op)
+        after = read_counts()
     rel = float((pred - ref).norm() / ref.norm())
     want_hs = [(b, (32 >> i) ** 2, 96 << i) for i in range(4)]
     want_hs += want_hs[::-1]
@@ -2284,10 +2273,10 @@ def dp_run(pt, wa, mlp_op, out, model_shards, profile):
     before to just after it), then timed steps."""
     trainer = dp_trainer(pt, "B", out, DP_ROWS, DP_ROWS * DP_STEPS, model_shards)
     torch.cuda.reset_peak_memory_stats()
-    reset_counts(wa, mlp_op)
+    reset_counts()
     trainer.train()
     torch.cuda.synchronize()
-    counts = read_counts(wa, mlp_op)
+    counts = read_counts()
     per_step = block_launches(trainer.model, wa, mlp_op, backward=True)
     res = {"launches": counts,
            "launches_ok": counts == {k: DP_STEPS * v for k, v in per_step.items()},
@@ -2351,7 +2340,7 @@ def dp_worker(rank: int, world: int, root: str) -> None:
         json.dump(out, f)
 
 
-def dp_reference(pt, wa, mlp_op, root):
+def dp_reference(pt, root):
     """The check run in this process: the same steps at the same global
     batch on one card; the step log, the final parameters (on the CPU) and
     the timed steps."""
@@ -2376,7 +2365,7 @@ def dp_rel(a, b):
     return abs(a - b) / max(abs(b), 1e-30)
 
 
-def phase_data_parallel(pt, wa, mlp_op, card):
+def phase_data_parallel(pt, card):
     """The Trainer over a process group on the card(s): ``world`` worker
     processes of this script (``dp_worker``), with two or more cards one a
     card over NCCL, with one card two on it over gloo (DDP on CUDA tensors:
@@ -2401,7 +2390,7 @@ def phase_data_parallel(pt, wa, mlp_op, card):
     root = tempfile.mkdtemp(prefix="chip_smoke_dp_")
     try:
         t0 = time.perf_counter()
-        ref_log, ref_params, ref_timed = dp_reference(pt, wa, mlp_op, root)
+        ref_log, ref_params, ref_timed = dp_reference(pt, root)
         ref_s = time.perf_counter() - t0
         spec = {"backend": backend, "runs": runs,
                 "cells": DP_CELLS if cards >= 4 else ()}
@@ -2496,6 +2485,151 @@ def phase_data_parallel(pt, wa, mlp_op, card):
         return ranks[0]["runs"]["ddp"]["launches"]
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# The bench
+# ---------------------------------------------------------------------------
+
+# bench_torch.py from its command line: eager (with the ScOT-L entry), then
+# its CUDA-graph mode; seconds each may take.
+BENCH_RUNS = (({}, 900), ({"BENCH_SCAN": "10", "BENCH_SKIP_L": "1"}, 600))
+BENCH_WARMUP = 2        # steps before the 3 compared, eager and on the graph's side stream
+BENCH_GRAPH_TOL = 1e-6  # relative L2, graph replays vs eager steps (losses, parameters)
+
+
+def bench_line(env, timeout, want_l):
+    """``python bench_torch.py`` in a subprocess with ``env`` added: its one
+    JSON line, checked (value > 0, 0 < mfu <= 1.05, the card's name and
+    power limit, the ScOT-L entry without an error when ``want_l``)."""
+    root = Path(__file__).resolve().parent
+    res = subprocess.run([sys.executable, str(root / "bench_torch.py")], cwd=root,
+                         env=dict(os.environ, **env), capture_output=True, text=True,
+                         timeout=timeout)
+    lines = [ln for ln in res.stdout.splitlines() if ln.startswith("{")]
+    line = json.loads(lines[0]) if len(lines) == 1 else None
+    extra = (line or {}).get("extra", {})
+    ok = (res.returncode == 0 and line is not None and line["value"] > 0
+          and line["metric"] == "samples_per_sec_per_chip_scot_b_pretrain"
+          and extra.get("mfu") is not None and 0 < extra["mfu"] <= 1.05
+          and bool(extra.get("device")) and extra.get("power_limit_w") is not None
+          and (not want_l or ("scot_l" in extra and "error" not in extra["scot_l"])))
+    if not ok:
+        print(res.stdout[-4000:], res.stderr[-8000:], sep="\n", file=sys.stderr, flush=True)
+    return line, ok
+
+
+def bench_graph_vs_eager():
+    """``bench_torch.GraphStep`` held to eager steps at ScOT-B b32, from the
+    same seeded weights and optimizer: ``BENCH_WARMUP`` steps (eager; on the
+    graph's side stream before its capture), then three steps each way.
+    Gated: three replays against three eager steps of the graph's own
+    optimizer (capturable AdamW, LR in device tensors; ``capture=False``),
+    losses and parameters within relative L2 ``BENCH_GRAPH_TOL``, and
+    launches 64/64/32/32 a step; the replays' losses against eager
+    ``train_step`` with the default AdamW within the same. Printed: the
+    parameters against that default AdamW, whose arithmetic rounds
+    otherwise (``GraphStep``'s docstring)."""
+    import bench_torch as bt
+
+    cfg = bt.bench_config("B")
+    data = bt.make_batch(cfg, BATCH, "cuda")
+    runs = {}
+    for mode in ("eager", "eager_capturable", "graph"):
+        model, opt, sched = bt.build(cfg, "cuda")
+        if mode == "eager":
+            for _ in range(BENCH_WARMUP):
+                bt.eager_step(model, opt, sched, data)
+
+            def step():
+                return bt.eager_step(model, opt, sched, data)
+        else:
+            step = bt.GraphStep(model, opt, sched, data, warmup=BENCH_WARMUP,
+                                capture=mode == "graph")
+            graph_launches = step.launches_per_step
+        losses = torch.stack([step()["loss"].clone() for _ in range(3)])
+        runs[mode] = (losses, torch.cat([p.detach().flatten() for p in model.parameters()]))
+        del model, opt, sched, step
+        torch.cuda.empty_cache()
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    lg, pg = runs["graph"]
+    cmp = {}
+    for ref in ("eager_capturable", "eager"):
+        lr_, pr = runs[ref]
+        cmp[ref] = {"losses": lr_.tolist(), "loss_rel_l2": rel(lg, lr_),
+                    "param_rel_l2": rel(pg, pr), "loss_max_abs_diff": float((lg - lr_).abs().max()),
+                    "param_max_abs_diff": float((pg - pr).abs().max())}
+    want = launches(window_attention_fwd=64, window_attention_bwd=64, fused_mlp_fwd=32,
+                    fused_mlp_bwd=32)
+    same = cmp["eager_capturable"]
+    ok = (same["loss_rel_l2"] <= BENCH_GRAPH_TOL and same["param_rel_l2"] <= BENCH_GRAPH_TOL
+          and cmp["eager"]["loss_rel_l2"] <= BENCH_GRAPH_TOL and graph_launches == want)
+    return {"what": f"ScOT-B b{BATCH}: {BENCH_WARMUP} steps, then 3 graph replays vs 3 eager "
+                    "steps from the same seeded weights and optimizer",
+            "graph_losses": lg.tolist(), "vs": cmp, "tol": BENCH_GRAPH_TOL,
+            "graph_launches_per_step": {k: v for k, v in graph_launches.items() if v},
+            "ok": ok}
+
+
+def bench_profiles(line):
+    """Where a bench step's device time goes, eager and as a CUDA graph:
+    ``device_time_profile`` of one ScOT-B and one ScOT-L step at the bench's
+    batches (the eager idle share against the eager step time of the
+    bench's line; the graph's against its replay's wall time, median of 5),
+    and the graph's replay ms."""
+    import bench_torch as bt
+
+    def profile(fn, wall_ms):
+        prof = device_time_profile(fn, wall_ms)
+        return {k: prof[k] for k in ("device_busy_ms", "device_idle_share", "device_kernels",
+                                     "busy_ms_by_group")}
+
+    out = {}
+    for size, res in (("B", line["extra"]), ("L", line["extra"]["scot_l"])):
+        cfg = bt.bench_config(size)
+        data = bt.make_batch(cfg, res["batch"], "cuda")
+        model, opt, sched = bt.build(cfg, "cuda")
+        eager = profile(lambda: bt.eager_step(model, opt, sched, data), res["step_time_ms"])
+        del model, opt, sched
+        torch.cuda.empty_cache()
+        model, opt, sched = bt.build(cfg, "cuda")
+        graph = bt.GraphStep(model, opt, sched, data)
+        replay_ms = host_ms(graph, iters=5)
+        out[f"ScOT-{size} b{res['batch']}"] = {
+            "eager": eager, "graph": {"replay_ms": replay_ms, **profile(graph, replay_ms)}}
+        del model, opt, sched, data, graph
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_bench(card):
+    """``bench_torch.py``, the port's train-step bench, run twice from its
+    command line (eager with the ScOT-L entry; ``BENCH_SCAN=10``, a CUDA
+    graph of one step replayed), each line checked and printed; then, in
+    this process, the graph's step held to eager steps
+    (``bench_graph_vs_eager``) and the device time by group of eager and
+    graph steps (``bench_profiles``)."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    lines, oks, flops = [], [], {}
+    for env, timeout in BENCH_RUNS:
+        line, ok = bench_line({**env, **flops}, timeout, want_l="BENCH_SKIP_L" not in env)
+        lines.append(line)
+        oks.append(ok)
+        if line is not None:  # the count does not depend on the mode
+            flops = {"BENCH_FLOPS": repr(line["extra"]["flops_per_step"])}
+        print(json.dumps(line), flush=True)
+    graph = bench_graph_vs_eager()
+    ok = all(oks) and graph["ok"]
+    profiles = bench_profiles(lines[0]) if oks[0] else None
+    emit({"phase": "bench", "runs": [env for env, _ in BENCH_RUNS], "lines_ok": oks,
+          "graph_vs_eager": graph, "eager_step_profiles": profiles,
+          "seconds": time.perf_counter() - t0, "ok": ok, "card": card})
+    if not ok:
+        raise SystemExit("bench phase failed")
 
 
 def kernels_line(results, bwd_results, cln_results, op_results, per_forward, rollout_counts,
@@ -2595,7 +2729,7 @@ DP_SOURCES = ("window_attention", "window_attention_bwd", "mlp", "mlp_bwd")
 
 
 def phase_dp_environment(build):
-    """``--phase data_parallel``: the cards (name and power limit, and how
+    """``--phase data_parallel`` or ``bench``: the cards (name and power limit, and how
     they are linked) and the build of the sources the bf16 train step
     runs."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2620,8 +2754,8 @@ def main(argv) -> int:
     if argv[:1] == ["--dp-worker"]:
         dp_worker(int(argv[1]), int(argv[2]), argv[3])
         return 0
-    if argv not in ([], ["--phase", "data_parallel"]):
-        print("usage: chip_smoke.py [--phase data_parallel]", file=sys.stderr)
+    if argv not in ([], ["--phase", "data_parallel"], ["--phase", "bench"]):
+        print("usage: chip_smoke.py [--phase data_parallel|bench]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing run", file=sys.stderr)
@@ -2634,19 +2768,22 @@ def main(argv) -> int:
 
     if argv:
         card = phase_dp_environment(_build)
-        phase_data_parallel(pt, wa_mod, mlp_op, card)
+        if argv[1] == "bench":
+            phase_bench(card)
+        else:
+            phase_data_parallel(pt, card)
         emit(device_line())
         return 0
     card = phase_environment(_build, wa_mod, mlp_op)
     results = phase_kernels(pt, wa_mod, mlp_op, attn_mod, bound_ms, card)
     model, x, t, per_forward, forward_ms = phase_model(pt, wa_mod, mlp_op, attn_mod, card)
     phase_profile(model, x, t, forward_ms, card)
-    rollout_counts = phase_rollout(pt, wa_mod, mlp_op, model, x, t, per_forward, card)
+    rollout_counts = phase_rollout(pt, model, x, t, per_forward, card)
     bwd_results = phase_bwd_kernels(pt, wa_mod, mlp_op, attn_mod, bound_ms, card)
     step, step_counts, step_ms = phase_train(pt, wa_mod, mlp_op, model, card)
     phase_train_profile(step, step_ms, card)
     cln_results = phase_cln_kernels(pt, mlp_op, bound_ms, card)
-    op_results, op_counts = phase_fused_attention(pt, wa_mod, mlp_op, attn_mod, bound_ms, card)
+    op_results, op_counts = phase_fused_attention(pt, wa_mod, attn_mod, bound_ms, card)
     tail_model, _, _, tail_forward, _ = phase_model(pt, wa_mod, mlp_op, attn_mod, card,
                                                     fused_tail=True)
     tail_step, tail_counts, tail_step_ms = phase_train(pt, wa_mod, mlp_op, tail_model, card,
@@ -2683,11 +2820,12 @@ def main(argv) -> int:
     root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     try:
         run_dir, data, cli_counts, ft_counts = phase_cli_train(pt, wa_mod, mlp_op, card, root)
-        inference_counts = phase_cli_inference(pt, wa_mod, mlp_op, card, run_dir, data, root)
+        inference_counts = phase_cli_inference(pt, card, run_dir, data, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    phase_intermediates(pt, wa_mod, mlp_op, attn_mod, card)
-    dp_counts = phase_data_parallel(pt, wa_mod, mlp_op, card)
+    phase_intermediates(pt, attn_mod, card)
+    dp_counts = phase_data_parallel(pt, card)
+    phase_bench(card)
     paths = {"remat_step": remat_counts, "cli_train": cli_counts, "cli_finetune": ft_counts,
              "cli_inference_eval": inference_counts, "data_parallel_rank0": dp_counts}
     emit(kernels_line(results, bwd_results, cln_results, op_results, per_forward,

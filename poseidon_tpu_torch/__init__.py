@@ -11,7 +11,14 @@ under ``torchrun`` (``parallel/``: DDP, HSDP). The command lines are
 
 from .config import MODEL_MAP, ScOTConfig, make_config
 from .hub import from_jax_params, from_pretrained, save_pretrained
-from .models.scot import ScOT, apply_pixel_mask, build_model, forward_with_intermediates, scot_loss
+from .models.scot import (
+    ScOT,
+    apply_pixel_mask,
+    build_model,
+    forward_with_intermediates,
+    forward_with_loss,
+    scot_loss,
+)
 from .data.registry import get_dataset
 from .metrics import ChannelGroupMetrics
 from .training import (
@@ -36,6 +43,7 @@ __all__ = [
     "autoregressive_rollout",
     "rollout_with_intermediates",
     "apply_pixel_mask",
+    "forward_with_loss",
     "scot_loss",
     "build_optimizer",
     "train_step",

@@ -636,6 +636,27 @@ def scot_loss(prediction: torch.Tensor, labels: torch.Tensor, config: ScOTConfig
     return torch.stack(terms).mean()
 
 
+def forward_with_loss(model: nn.Module, pixel_values: torch.Tensor,
+                      time: Optional[torch.Tensor], labels: torch.Tensor,
+                      pixel_mask: Optional[torch.Tensor] = None, *,
+                      generator: Optional[torch.Generator] = None,
+                      group=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Forward pass, masked prediction and loss, as
+    ``poseidon_tpu.models.scot.forward_with_loss`` (the reference
+    ``ScOT.forward`` with labels given): returns ``(loss, prediction)``.
+
+    ``model`` is a :class:`ScOT` or a wrapper of one that holds it as
+    ``module`` (DDP). Dropout, drop-path and BatchNorm follow the module's
+    train/eval mode, the port's form of the JAX ``deterministic`` and
+    ``mutable`` arguments: in train mode the masks come from ``generator``
+    and the BatchNorm running statistics update in place. ``group``: see
+    :func:`scot_loss`."""
+    pred = model(pixel_values, time, generator=generator)
+    pred = apply_pixel_mask(pred, labels, pixel_mask)
+    config = getattr(model, "module", model).config
+    return scot_loss(pred, labels, config, group=group), pred
+
+
 def _loss_share(prediction: torch.Tensor, labels: torch.Tensor, config: ScOTConfig,
                 sample_weights: Optional[torch.Tensor], group) -> torch.Tensor:
     """This process's share of :func:`scot_loss` over the batch split across

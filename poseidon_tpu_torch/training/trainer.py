@@ -59,7 +59,7 @@ import torch.distributed as dist
 
 from ..data.loader import DataLoader
 from ..models.layers import BatchNorm
-from ..models.scot import ScOT, SwinBlock, apply_pixel_mask, scot_loss
+from ..models.scot import ScOT, SwinBlock, apply_pixel_mask, forward_with_loss, scot_loss
 from ..parallel.host import is_primary, process_count, sync_hosts
 from ..parallel.mesh import gather_rows, make_mesh
 from ..utils.device import resolve_device
@@ -74,15 +74,8 @@ CHECKPOINT_FILE = "state.pt"
 
 def _direct_loss(model: ScOT, batch: Mapping[str, torch.Tensor],
                  generator: Optional[torch.Generator], group=None) -> torch.Tensor:
-    labels = batch["labels"]
-    pred = model(batch["pixel_values"], batch.get("time"), generator=generator)
-    pred = apply_pixel_mask(pred, labels, batch.get("pixel_mask"))
-    return scot_loss(pred, labels, _config(model), group=group)
-
-
-def _config(model: torch.nn.Module):
-    """The ScOT config of ``model``, or of the module a DDP wrapper holds."""
-    return getattr(model, "module", model).config
+    return forward_with_loss(model, batch["pixel_values"], batch.get("time"), batch["labels"],
+                             batch.get("pixel_mask"), generator=generator, group=group)[0]
 
 
 def _data_size(group) -> int:

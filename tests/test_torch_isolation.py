@@ -1,5 +1,5 @@
-"""The PyTorch port stands alone: no module of ``poseidon_tpu_torch`` (or
-``chip_smoke.py``) imports JAX, flax, optax or the JAX package, the package
+"""The PyTorch port stands alone: no module of ``poseidon_tpu_torch`` (nor
+``chip_smoke.py`` or ``bench_torch.py``) imports JAX, flax, optax or the JAX package, the package
 imports with JAX blocked, and its entry points refuse to fall back to the
 CPU when CUDA is absent."""
 
@@ -29,7 +29,8 @@ def _imported_roots(path: Path):
 
 
 def _port_files():
-    return sorted((ROOT / "poseidon_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted((ROOT / "poseidon_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                                   ROOT / "bench_torch.py"]
 
 
 def test_no_forbidden_imports():
