@@ -39,7 +39,7 @@ Phases, one JSON line each (any failure ends the run with a non-zero exit):
    32 on the weights of phase 3: the kernel path's loss and gradients
    against the plain path's, every parameter with a finite gradient and the
    attention and MLP weights of every block with non-zero ones, launches
-   per step (counts reset just before one step, read just after), ten steps
+   per step (counts reset just before one step, read just after), six steps
    on one batch with a falling loss, step time and peak memory;
 8. train profile: torch.profiler over one train step (device busy time
    against the unprofiled step time, busy time by group, top kernels);
@@ -82,39 +82,56 @@ Phases, one JSON line each (any failure ends the run with a non-zero exit):
    MLP launches a forward, 64 / 64 and 32 / 32 a step; wall ms, device busy
    ms, idle share and the general attention and MLP kernels' device ms of
    one forward and one step;
-17. trainer: the port's Trainer on a synthetic CE-Gauss file (see
+17. general tail kernels ("general_cln_kernel"): the fused tail's general
+   forward and backward kernels (``csrc/mlp_cln_general.cu``) against their
+   plain versions at ScOT-B, ScOT-L and ScOT-T stages 0-1 in fp32 and
+   ScOT-T's with mlp_ratio 3 (F = 144, 288) in bf16, batch 32 (two backward
+   calls bit-identical); fp32 held by relative L2 <= 1e-4, bf16 as phase 9;
+   times, library times and bounds as in 14;
+18. ScOT-T in fp32 and ScOT-T with heads (2, 4, 8, 16) and mlp_ratio 3 in
+   bf16 under ``fused_block_tail=True`` ("model_T_fp32_tail",
+   "train_T_fp32_tail", "model_T_odd_tail", "train_T_odd_tail"; the gates
+   of 15; the tail on its general kernels at stages 0-1);
+19. ScOT-B in fp32 under ``fused_block_tail=True`` ("model_B_fp32_tail",
+   "rollout_B_fp32_tail", "train_B_fp32_tail", each with the gates and the
+   profile of 16, the rollout held to the plain path's too): 64 general
+   attention and 32 general tail launches a forward and no MLP launch, 64 /
+   64 and 32 / 32 a step; the step's gradient difference by parameter kind,
+   beside the tail's plain versions and the unfused kernel path on the same
+   weights (``tail_grad_witness``);
+20. trainer: the port's Trainer on a synthetic CE-Gauss file (see
    ``phase_trainer``): ScOT-B train with mid-epoch checkpoints, evaluate,
    predict with two AR steps, and a resumed run held to the uninterrupted
    one bit for bit; steps/s beside the bare step, the loader's time, the
    device idle share, launches per step (64/64/32/32);
-18. remat: the ScOT-B bf16 train step with hidden dropout and drop-path on
+21. remat: the ScOT-B bf16 train step with hidden dropout and drop-path on
    (masks from a CUDA generator) under each gradient-checkpointing mode
    against the step without it: loss, gradients (relative L2 <= 1e-6) and
    the generator's end state; launches (128/64/64/32 under ``True``); step
    time and peak memory per mode (see ``phase_remat``);
-19. cli_train: ``python -m poseidon_tpu_torch.train`` in process on a
+22. cli_train: ``python -m poseidon_tpu_torch.train`` in process on a
    synthetic CE-Gauss directory (ScOT-B bf16, two epochs), then
    ``save_pretrained`` and the fine-tune onto a Poisson-Gauss directory
    with ``--replace_embedding_recovery``, and the same without the flag
    failing (see ``phase_cli_train``);
-20. cli_inference: ``python -m poseidon_tpu_torch.inference`` in process
+23. cli_inference: ``python -m poseidon_tpu_torch.inference`` in process
    on that run directory in fp32 (general kernels), every mode that reads
    one model, ``eval`` held to the plain path (see ``phase_cli_inference``);
-21. intermediates: ``forward_with_intermediates`` and
+24. intermediates: ``forward_with_intermediates`` and
    ``rollout_with_intermediates`` on ScOT-B fp32 (see
    ``phase_intermediates``);
-22. data_parallel: the Trainer over a process group of worker copies of
+25. data_parallel: the Trainer over a process group of worker copies of
    this script, DDP (and with two cards or more HSDP) held to one process
    (see ``phase_data_parallel``);
-23. bench: ``python bench_torch.py`` in a subprocess, eager (ScOT-B b128
+26. bench: ``python bench_torch.py`` in a subprocess, eager (ScOT-B b128
    and ScOT-L b64) and with ``BENCH_SCAN=10`` (a CUDA graph of the step),
    each JSON line checked and printed, then the graph's step held to the
    eager step at ScOT-B b32 (see ``phase_bench``);
-24. the kernels line (with each kernel's launches in phases 18-20 and on
-   rank 0 of phase 22); 25. the device line, last.
+27. the kernels line (with each kernel's launches in phases 21-23 and on
+   rank 0 of phase 25); 28. the device line, last.
 
-    python3 chip_smoke.py --phase data_parallel   # phase 22 alone
-    python3 chip_smoke.py --phase bench           # phase 23 alone
+    python3 chip_smoke.py --phase data_parallel   # phase 25 alone
+    python3 chip_smoke.py --phase bench           # phase 26 alone
 
 runs one phase alone, after the cards' line and the build of the four
 sources the bf16 step runs; with four cards the data parallel phase adds
@@ -128,6 +145,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -147,7 +165,7 @@ MLP_TOL = 3e-2
 MODEL_REL_TOL = 3e-2  # relative L2, kernel path vs plain path, bf16 end to end
 SUM_REL_TOL = 1e-2    # backward outputs summed over rows or windows: relative L2
 GRAD_REL_TOL = 5e-2   # relative L2 of the whole gradient, kernel path vs plain path
-TRAIN_STEPS = 10
+TRAIN_STEPS = 6
 
 
 _T0 = time.perf_counter()
@@ -585,11 +603,11 @@ def cln_shapes(cfg, batch, mlp_op):
     return out
 
 
-def cln_case(b, l, c, f, gen):
+def cln_case(b, l, c, f, gen, dtype=torch.bfloat16):
     """mlp_case's operands with x as (B, L, C), and a per-image scale and
     shift that differ by image and channel (a tile that read another image's
     row would disagree)."""
-    x, w1, b1, w2, b2 = mlp_case(b * l, c, f, gen)
+    x, w1, b1, w2, b2 = mlp_case(b * l, c, f, gen, dtype)
     scale = (1.0 + 0.5 * torch.randn(b, c, generator=gen)).to("cuda")
     shift = (0.5 * torch.randn(b, c, generator=gen)).to("cuda")
     return x.view(b, l, c), w1, b1, w2, b2, scale, shift
@@ -607,16 +625,19 @@ def cln_library_call(x, w1, b1, w2, b2, s, sh, eps):
     return x + F.layer_norm(o, (o.shape[-1],), eps=eps) * s + sh
 
 
-def cln_bound(b, l, c, f, bound_ms, backward=False):
-    """Forward: 4 M C F FLOPs; x and W1, W2 (bf16), b1, b2, scale, shift
-    read once, out written once. Backward: 12 M C F FLOPs (o recomputed,
-    then u, dh, dx, dW1, dW2); x, dy, W1, W2, b1, b2, scale read once, dx
-    and dW1, dW2, db1, db2, dscale, dshift (fp32) written once."""
+def cln_bound(b, l, c, f, bound_ms, backward=False, es=2):
+    """Forward: 4 M C F FLOPs; x and W1, W2 (``es`` bytes a value), b1, b2,
+    scale, shift read once, out written once. Backward: 12 M C F FLOPs (o
+    recomputed, then u, dh, dx, dW1, dW2); x, dy, W1, W2, b1, b2, scale read
+    once, dx and dW1, dW2, db1, db2, dscale, dshift (fp32) written once.
+    ``es`` 4: fp32 operands, whose products the general kernels issue as
+    three tf32 ones, at the dense TF32 rate."""
     m = b * l
     if not backward:
-        return bound_ms(4.0 * m * c * f, 2 * m * c * 2 + 2 * c * f * 2 + (f + c + 2 * b * c) * 4)
-    return bound_ms(12.0 * m * c * f, 3 * m * c * 2 + 2 * c * f * 2 + 2 * c * f * 4
-                    + (f + c + b * c) * 4 + (f + c + 2 * b * c) * 4)
+        return bound_ms(4.0 * m * c * f, 2 * m * c * es + 2 * c * f * es + (f + c + 2 * b * c) * 4,
+                        tf32x3=es == 4)
+    return bound_ms(12.0 * m * c * f, 3 * m * c * es + 2 * c * f * es + 2 * c * f * 4
+                    + (f + c + b * c) * 4 + (f + c + 2 * b * c) * 4, tf32x3=es == 4)
 
 
 def phase_cln_kernels(pt, mlp_op, bound_ms, card):
@@ -880,6 +901,25 @@ def general_tol(fp32, tol, sums):
         f"; {', '.join(sums[1:])} rel L2 <= {SUM_REL_TOL}" if len(sums) > 1 else "")
 
 
+def general_row(phase, card, kernel, model_name, shape, errs, ok, tol, timed, lib, bms_by,
+                **extra):
+    """One kernel's row of a general kernels' phase: its errors and gate, the
+    kernel's time (events and device time, by kernel too), the plain
+    version's (``timed``) and the library call's, and the bound; emitted,
+    and the run ended where it disagrees."""
+    dev, by_kernel = device_ms(timed[0], by_kernel=True)
+    r = {"phase": phase, "kernel": kernel, "model": model_name, "shape": shape,
+         "errors": errs, "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+         "tol": tol, "ok": ok, "kernel_ms": cuda_ms(timed[0]), "plain_ms": cuda_ms(timed[1]),
+         "library_ms": cuda_ms(lib), "kernel_device_ms": dev, "device_ms_by_kernel": by_kernel,
+         "library_device_ms": device_ms(lib), "bound_ms": bms_by[0], "bound_by": bms_by[1],
+         **extra, "card": card}
+    emit(r)
+    if not ok:
+        raise SystemExit(f"{kernel} disagrees at {model_name} {shape}")
+    return r
+
+
 def phase_general_kernels(pt, wa, mlp_op, attn_mod, bound_ms, card):
     """The general kernels against their plain versions at the shapes of
     ``general_attention_cases`` and ``general_mlp_cases``: forward and
@@ -890,19 +930,8 @@ def phase_general_kernels(pt, wa, mlp_op, attn_mod, bound_ms, card):
     gen = torch.Generator().manual_seed(11)
     results = {"attention_fwd": [], "attention_bwd": [], "mlp_fwd": [], "mlp_bwd": []}
 
-    def row(kernel, model_name, shape, errs, ok, tol, timed, lib, bms_by, **extra):
-        dev, by_kernel = device_ms(timed[0], by_kernel=True)
-        r = {"phase": "general_kernel", "kernel": kernel, "model": model_name, "shape": shape,
-             "errors": errs, "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
-             "tol": tol, "ok": ok, "kernel_ms": cuda_ms(timed[0]), "plain_ms": cuda_ms(timed[1]),
-             "library_ms": cuda_ms(lib), "kernel_device_ms": dev,
-             "device_ms_by_kernel": by_kernel,
-             "library_device_ms": device_ms(lib), "bound_ms": bms_by[0], "bound_by": bms_by[1],
-             **extra, "card": card}
-        emit(r)
-        if not ok:
-            raise SystemExit(f"{kernel} disagrees at {model_name} {shape}")
-        return r
+    def row(*args, **extra):
+        return general_row("general_kernel", card, *args, **extra)
 
     for model_name, tag, n, t, heads, d, nw, window, res, shift, dt in general_attention_cases(pt):
         fp32, es = dt == torch.float32, 4 if dt == torch.float32 else 2
@@ -985,6 +1014,79 @@ def phase_general_kernels(pt, wa, mlp_op, attn_mod, bound_ms, card):
 
 
 
+def general_cln_cases(pt, mlp_op):
+    """(model, tag, B, L, C, F, dtype) of the calls the general tail kernels
+    serve on the main paths under ``fused_block_tail``: ScOT-B, ScOT-L and
+    ScOT-T stages 0-1 in fp32 (ScOT-L stage 1: C = 384, past one
+    warpgroup's 192 columns, so the norm runs in a row kernel after the
+    MLP's partials), and ScOT-T's with mlp_ratio 3 (F = 144 and 288) in
+    bf16, batch 32."""
+    out = []
+    for model_name, size, over, dt in (("B-fp32", "B", {}, torch.float32),
+                                       ("L-fp32", "L", {}, torch.float32),
+                                       ("T-fp32", "T", {}, torch.float32),
+                                       ("T-odd", "T", ODD, torch.bfloat16)):
+        cfg = pt.make_config(size, image_size=128, num_channels=4, num_out_channels=4, **over)
+        out += [(model_name, *shape, dt) for shape in cln_shapes(cfg, BATCH, mlp_op)]
+    return out
+
+
+def phase_general_cln_kernels(pt, mlp_op, bound_ms, card):
+    """The general tail kernels (``csrc/mlp_cln_general.cu``) against their
+    plain versions at the shapes of ``general_cln_cases``: forward and
+    backward, two backward calls compared bit for bit; fp32 by relative L2
+    <= FP32_REL_TOL on every output, bf16 by the gates of the fused-tail
+    phase; kernel (events and device time), plain and library times
+    (``cln_library_call`` and its autograd backward, in the operands'
+    dtype, TF32 off), and the bound (fp32 at three tf32 products a
+    product)."""
+    gen = torch.Generator().manual_seed(13)
+    eps = 1e-5
+    results = {"fwd": [], "bwd": []}
+    for model_name, tag, b, l, c, f, dt in general_cln_cases(pt, mlp_op):
+        fp32, es = dt == torch.float32, 4 if dt == torch.float32 else 2
+        x, w1, b1, w2, b2, scale, shift = cln_case(b, l, c, f, gen, dt)
+        dy = torch.randn(b, l, c, generator=gen).to("cuda", dt)
+        shape = f"{tag} {dtype_name(dt)}: B={b} L={l} C={c} F={f}"
+        fargs = (x, w1, b1, w2, b2, scale, shift, eps)
+        before = mlp_op.mlp_cln.launches_general
+        out = mlp_op.mlp_cln(*fargs)
+        ref = mlp_op.mlp_cln_plain(*fargs)
+        torch.cuda.synchronize()
+        errs = compare(("out",), (out,), (ref,))
+        ok = (mlp_op.mlp_kernel_for(c, f, dt) == "general"
+              and mlp_op.mlp_cln.launches_general == before + 1
+              and general_ok(errs, (out,), (ref,), fp32, MLP_TOL))
+        lib_in = cln_library_inputs(x, w1, b1, w2, b2, scale, shift)
+        results["fwd"].append(general_row(
+            "general_cln_kernel", card, "mlp_cln_general_fwd", model_name, shape, errs, ok,
+            general_tol(fp32, MLP_TOL, ("out",)),
+            (lambda: mlp_op.mlp_cln(*fargs), lambda: mlp_op.mlp_cln_plain(*fargs)),
+            lambda: cln_library_call(*lib_in, eps), cln_bound(b, l, c, f, bound_ms, es=es)))
+        del out, ref
+        bargs = (x, w1, b1, w2, b2, scale, eps, dy)
+        before = mlp_op.mlp_cln_bwd.launches_general
+        out = mlp_op.mlp_cln_bwd(*bargs)
+        again = mlp_op.mlp_cln_bwd(*bargs)
+        ref = mlp_op.mlp_cln_bwd_plain(*bargs)
+        torch.cuda.synchronize()
+        names = ("dx", "dw1", "db1", "dw2", "db2", "dscale", "dshift")
+        errs = compare(names, out, ref)
+        ok = (mlp_op.mlp_cln_bwd.launches_general == before + 2
+              and general_ok(errs, out, ref, fp32, MLP_TOL, again))
+        leaves = [a.detach().requires_grad_() for a in lib_in]
+        lib_out = cln_library_call(*leaves, eps)
+        results["bwd"].append(general_row(
+            "general_cln_kernel", card, "mlp_cln_general_bwd", model_name, shape, errs, ok,
+            general_tol(fp32, MLP_TOL, names) + "; second call bit-identical",
+            (lambda: mlp_op.mlp_cln_bwd(*bargs), lambda: mlp_op.mlp_cln_bwd_plain(*bargs)),
+            lambda: torch.autograd.grad(lib_out, leaves, dy, retain_graph=True),
+            cln_bound(b, l, c, f, bound_ms, backward=True, es=es),
+            splits=mlp_op.general_bwd_splits(b * l, c, f)))
+        del x, dy, out, again, ref, lib_out, leaves, lib_in
+    return results
+
+
 # ---------------------------------------------------------------------------
 # Model and rollout
 # ---------------------------------------------------------------------------
@@ -1048,7 +1150,8 @@ def block_launches(model, wa, mlp_op, fused_tail=False, backward=False):
     backward) of the model should make: per Swin block the attention kernel
     that ``attention_kernel_for`` picks, and the MLP kernel that
     ``use_mlp_kernel`` and ``mlp_kernel_for`` pick, or the fused tail where
-    ``use_fused_tail`` takes the block."""
+    ``use_fused_tail`` takes the block (its Hopper or its general kernels,
+    as ``mlp_kernel_for`` picks)."""
     from poseidon_tpu_torch.models.scot import SwinBlock
     want = launches()
     for blk in (m for m in model.modules() if isinstance(m, SwinBlock)):
@@ -1058,8 +1161,9 @@ def block_launches(model, wa, mlp_op, fused_tail=False, backward=False):
         names = ["window_attention_general" if kind == "general" else "window_attention"]
         fc = blk.intermediate.dense
         c, f, l = fc.in_features, fc.out_features, blk.resolution ** 2
-        if fused_tail and mlp_op.use_fused_tail(c, l, f, model.dtype):
-            names.append("mlp_cln")
+        if fused_tail and mlp_op.use_fused_tail(c, l, f):
+            names.append("mlp_cln" if mlp_op.mlp_kernel_for(c, f, model.dtype) == "wgmma"
+                         else "mlp_cln_general")
         elif mlp_op.use_mlp_kernel(c, l, f):
             names.append("fused_mlp" if mlp_op.mlp_kernel_for(c, f, model.dtype) == "wgmma"
                          else "mlp_general")
@@ -1148,23 +1252,41 @@ def phase_profile(model, x, t, forward_ms, card):
           "forward_ms": forward_ms, **device_time_profile(forward, forward_ms), "card": card})
 
 
-def phase_rollout(pt, model, x, t, per_forward, card):
+def plain_twin(pt, model):
+    """The plain path ("xla") on the model's weights, on the card."""
+    plain = pt.ScOT(model.config.replace(attention_impl="xla"), dtype=model.dtype)
+    plain.load_state_dict(model.state_dict(), strict=True)
+    return plain.to("cuda")
+
+
+def phase_rollout(pt, model, x, t, per_forward, card, name="rollout", tol=None):
+    """autoregressive_rollout with ar_steps=4, launches counted; with ``tol``,
+    held to the plain path's rollout on the same weights (relative L2)."""
     steps = 4
+
+    def rollout(m):
+        return pt.autoregressive_rollout(m, x, t, ar_steps=steps, num_out_channels=4,
+                                         device="cuda")
+
     with torch.no_grad():
         reset_counts()
-        y = pt.autoregressive_rollout(model, x, t, ar_steps=steps, num_out_channels=4,
-                                      device="cuda")
+        y = rollout(model)
         torch.cuda.synchronize()
         counts = read_counts()
-        roll_ms = host_ms(lambda: pt.autoregressive_rollout(
-            model, x, t, ar_steps=steps, num_out_channels=4, device="cuda"), iters=3, warmup=1)
+        roll_ms = host_ms(lambda: rollout(model), iters=3, warmup=1)
+        rel = None
+        if tol is not None:
+            y_plain = rollout(plain_twin(pt, model).eval())
+            rel = float((y.float() - y_plain.float()).norm() / y_plain.float().norm())
     ok = (tuple(y.shape) == (BATCH, 4, 128, 128) and bool(torch.isfinite(y).all())
-          and counts == {k: steps * v for k, v in per_forward.items()})
-    emit({"phase": "rollout", "ar_steps": steps, "batch": BATCH, "rollout_ms": roll_ms,
+          and counts == {k: steps * v for k, v in per_forward.items()}
+          and (tol is None or rel <= tol))
+    emit({"phase": name, "ar_steps": steps, "batch": BATCH, "rollout_ms": roll_ms,
           "final_rms": float(y.float().pow(2).mean().sqrt()), "launches": counts,
+          **({"rel_l2_vs_plain_path": rel, "tol": tol} if tol is not None else {}),
           "ok": ok, "card": card})
     if not ok:
-        raise SystemExit("rollout phase failed")
+        raise SystemExit(f"{name} phase failed")
     return counts
 
 
@@ -1202,15 +1324,69 @@ BLOCK_GRADS = ("attention.self.query.weight", "attention.self.key.weight",
 TAIL_GRADS = BLOCK_GRADS + ("layernorm_after.weight.weight", "layernorm_after.bias.weight")
 
 
+def grad_breakdown(g, ref):
+    """Relative L2 of the gradients ``g`` against ``ref`` (dicts by
+    parameter name): the whole, and by parameter kind (the name with its
+    stage and block indices starred) and by leaf, the eight largest shares
+    of the squared difference each."""
+    kinds, leaves = {}, []
+    for n, r in ref.items():
+        if r is None or g[n] is None:
+            continue
+        d = float((g[n].float() - r.float()).square().sum())
+        nr = float(r.float().square().sum())
+        leaves.append((n, d, nr))
+        acc = kinds.setdefault(re.sub(r"\.\d+\.", ".*.", n), [0.0, 0.0])
+        acc[0] += d
+        acc[1] += nr
+    tot_d, tot_r = sum(v[1] for v in leaves), sum(v[2] for v in leaves)
+
+    def top(items):
+        items = sorted(items, key=lambda v: -v[1])[:8]
+        return [{"name": n, "rel_l2": math.sqrt(d / nr) if nr else None,
+                 "share": d / tot_d if tot_d else 0.0} for n, d, nr in items]
+
+    return {"rel_l2": math.sqrt(tot_d / tot_r),
+            "by_kind": top([(k, d, nr) for k, (d, nr) in kinds.items()]),
+            "by_leaf": top(leaves)}
+
+
+def tail_grad_witness(pt, mlp_op, model, batch, g_plain, g_kernel):
+    """What the fused-tail model's gradient difference from the plain path
+    is made of. The kernel path's difference by parameter kind and leaf,
+    and two more paths on the same weights and batch, each against the
+    plain path and against the kernel path: ``tail_plain_twins``, the same
+    model with the tail's plain versions (``mlp_cln_plain``,
+    ``mlp_cln_bwd_plain``: the kernels' formula and rounding points in
+    PyTorch, the backward's norm gradient analytic) in place of its
+    kernels; ``unfused_kernels``, the model without the fused tail (the
+    general MLP kernel, then the norm under autograd)."""
+    out = {"kernel_vs_plain": grad_breakdown(g_kernel, g_plain)}
+    fwd, bwd = mlp_op._forward_cln, mlp_op.mlp_cln_bwd
+    mlp_op._forward_cln, mlp_op.mlp_cln_bwd = mlp_op.mlp_cln_plain, mlp_op.mlp_cln_bwd_plain
+    try:
+        _, g_twin = loss_and_grads(pt, model, batch)
+    finally:
+        mlp_op._forward_cln, mlp_op.mlp_cln_bwd = fwd, bwd
+    unfused = pt.ScOT(model.config.replace(fused_block_tail=False), dtype=model.dtype)
+    unfused.load_state_dict(model.state_dict(), strict=True)
+    _, g_unfused = loss_and_grads(pt, unfused.to(next(model.parameters()).device), batch)
+    for name, g in (("tail_plain_twins", g_twin), ("unfused_kernels", g_unfused)):
+        out[name] = {"vs_plain": grad_breakdown(g, g_plain),
+                     "vs_kernel_path_rel_l2": grad_breakdown(g, g_kernel)["rel_l2"]}
+    del unfused, g_twin, g_unfused
+    return out
+
+
 def phase_train(pt, wa, mlp_op, model, card, fused_tail=False, size="B", tol=GRAD_REL_TOL,
-                name=None):
+                name=None, witness=False):
     """The ScOT-B (or the model's size) train step on the card: gradients of the kernel path
     against the plain path on the same weights and batch, launches per
     step, then TRAIN_STEPS steps on that batch (lr 1e-4, weight decay 1e-6,
     cosine over 10,000 steps, clip 5.0, as bench.py) and the step's time.
     With ``fused_tail`` the model is the fused-tail one (phase
     "fused_tail_train"); ``tol`` and the phase ``name`` serve the general
-    kernels' model phases."""
+    kernels' model phases; ``witness`` adds ``tail_grad_witness``."""
     block_grads = TAIL_GRADS if fused_tail else BLOCK_GRADS
     batch = train_batch()
     plain = pt.ScOT(model.config.replace(attention_impl="xla"), dtype=model.dtype)
@@ -1218,7 +1394,7 @@ def phase_train(pt, wa, mlp_op, model, card, fused_tail=False, size="B", tol=GRA
     plain = plain.to("cuda")
     loss_plain, g_plain = loss_and_grads(pt, plain, batch)
     vec_plain = torch.cat([g.float().flatten() for g in g_plain.values()])
-    del plain, g_plain
+    del plain
     reset_counts()
     loss_kernel, g_kernel = loss_and_grads(pt, model, batch)
     torch.cuda.synchronize()
@@ -1229,7 +1405,10 @@ def phase_train(pt, wa, mlp_op, model, card, fused_tail=False, size="B", tol=GRA
     blocks_checked = sum(1 for n in g_kernel if n.endswith(block_grads[0]))
     vec_kernel = torch.cat([g.float().flatten() for g in g_kernel.values()])
     rel = float((vec_kernel - vec_plain).norm() / vec_plain.norm())
-    del vec_kernel, vec_plain, g_kernel
+    del vec_kernel, vec_plain
+    witnesses = (tail_grad_witness(pt, mlp_op, model, batch, g_plain, g_kernel)
+                 if witness else None)
+    del g_plain, g_kernel
     model.zero_grad(set_to_none=True)
 
     opt, sched = pt.build_optimizer(model, learning_rate=1e-4, total_steps=10_000,
@@ -1240,6 +1419,7 @@ def phase_train(pt, wa, mlp_op, model, card, fused_tail=False, size="B", tol=GRA
         return pt.train_step(model, opt, sched, batch, max_grad_norm=5.0)
 
     losses, norms = [], []
+    t0 = time.perf_counter()
     for i in range(TRAIN_STEPS):
         if i == 0:
             reset_counts()
@@ -1248,6 +1428,7 @@ def phase_train(pt, wa, mlp_op, model, card, fused_tail=False, size="B", tol=GRA
         norms.append(float(out["grad_norm"]))
         if i == 0:
             step_counts = read_counts()
+    steps_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     step_ms = host_ms(step, iters=5)
     peak = torch.cuda.max_memory_allocated()
@@ -1269,9 +1450,10 @@ def phase_train(pt, wa, mlp_op, model, card, fused_tail=False, size="B", tol=GRA
           "blocks_checked": blocks_checked, "launches_per_grad": grad_counts,
           "launches_per_step": step_counts,
           "optimizer": "AdamW 4-group, lr 1e-4 cosine/10000, wd 1e-6, clip 5.0",
-          "losses": losses, "grad_norms": norms, "train_step_ms": step_ms,
+          "losses": losses, "grad_norms": norms, "steps_seconds": steps_s,
+          "train_step_ms": step_ms,
           "samples_per_s": BATCH / (step_ms / 1e3), "peak_memory_gib": peak / 2 ** 30,
-          "ok": ok, "card": card})
+          **({"grad_witness": witnesses} if witness else {}), "ok": ok, "card": card})
     if not ok:
         raise SystemExit(f"{name} phase failed (ScOT-{size})")
     return step, step_counts, step_ms
@@ -1309,6 +1491,8 @@ def device_time_profile(fn, wall_ref_ms):
             g = "port attention kernels"
         elif "attn_general_" in name:
             g = "port general attention kernels"
+        elif "clnepi" in name or "mlp_cln_general" in name:
+            g = "port general tail kernels"
         elif "mlp_general_" in name:
             g = "port general MLP kernels"
         elif any(k in name for k in ("mlp_fwd_kernel", "mlp_bwd_", "mlp_cln_")):
@@ -1340,54 +1524,90 @@ def phase_train_profile(step, step_ms, card, fused_tail=False):
 
 GENERAL_ATTN_GROUP = "port general attention kernels"
 GENERAL_MLP_GROUP = "port general MLP kernels"
+# The general tail's own kernels (its forward kernel under the norm's
+# epilogue, its row kernels, its reduce); its weight prologues and its
+# backward's MLP stage run the general MLP's kernels (GENERAL_MLP_GROUP).
+GENERAL_TAIL_GROUP = "port general tail kernels"
 
 
-def phase_fp32_b(pt, wa, mlp_op, attn_mod, card):
+def phase_fp32_b(pt, wa, mlp_op, attn_mod, card, fused_tail=False):
     """ScOT-B b32 in fp32, the compute dtype of the inference CLI and the
     default of ``build_model`` and ``from_pretrained``: every attention call
     on the general kernels (64 a forward, 64 / 64 a step) and every MLP call
-    on the general MLP kernels (32 a forward, 32 / 32 a step). The forward
-    (phase "model_B_fp32") and the train step ("train_B_fp32") against the
-    plain path on the same weights (relative L2 <= FP32_REL_TOL), then one
-    profiled forward and step: device busy, idle share, and the general
-    attention and MLP kernels' device time."""
+    on the general MLP kernels (32 a forward, 32 / 32 a step); with
+    ``fused_tail`` (``fused_block_tail=True``, phases "*_tail"), every
+    stage 0-1 block's MLP, norm and residual on the general tail kernels
+    instead (32 a forward, 32 / 32 a step, no MLP launch), and a rollout
+    (ar_steps=4). The forward (phase "model_B_fp32") and the train step
+    ("train_B_fp32") against the plain path on the same weights (relative
+    L2 <= FP32_REL_TOL; the rollout too), then one profiled forward and
+    step: device busy, idle share, and the general attention, MLP and tail
+    kernels' device time. Returns (forward, rollout, step) launch counts."""
+    tail = "_tail" if fused_tail else ""
     model, x, t, fwd_counts, fwd_ms = phase_model(
-        pt, wa, mlp_op, attn_mod, card, size="B", dtype=torch.float32, tol=FP32_REL_TOL,
-        name="model_B_fp32")
+        pt, wa, mlp_op, attn_mod, card, fused_tail=fused_tail, size="B", dtype=torch.float32,
+        tol=FP32_REL_TOL, name="model_B_fp32" + tail)
 
     def forward():
         with torch.no_grad():
             model(x, t)
 
+    def groups(prof):
+        by = prof["busy_ms_by_group"]
+        return {"general_attention_device_ms": by.get(GENERAL_ATTN_GROUP, 0.0),
+                "general_mlp_device_ms": by.get(GENERAL_MLP_GROUP, 0.0),
+                "general_tail_device_ms": by.get(GENERAL_TAIL_GROUP, 0.0)}
+
+    def mlp_ok(counts, n):
+        """The stage 0-1 blocks' MLP launches (``n`` each way) on the
+        general MLP kernels, or under the tail on the general tail kernels
+        and none on an MLP kernel."""
+        got = [counts[k] for k in ("mlp_general_fwd", "mlp_general_bwd", "mlp_cln_general_fwd",
+                                   "mlp_cln_general_bwd", "fused_mlp_fwd", "fused_mlp_bwd")]
+        return got == ([0, 0] + n + [0, 0] if fused_tail else n + [0, 0, 0, 0])
+
     prof = device_time_profile(forward, fwd_ms)
-    attn = prof["busy_ms_by_group"].get(GENERAL_ATTN_GROUP, 0.0)
-    mlp = prof["busy_ms_by_group"].get(GENERAL_MLP_GROUP, 0.0)
-    ok = (fwd_counts["window_attention_general_fwd"] == 64 and attn > 0
-          and fwd_counts["mlp_general_fwd"] == 32 and mlp > 0)
-    emit({"phase": "model_B_fp32_profile", "what": "one ScOT-B fp32 b32 forward, kernel path",
-          "forward_ms": fwd_ms, "general_attention_device_ms": attn,
+    dev = groups(prof)
+    own = dev["general_tail_device_ms" if fused_tail else "general_mlp_device_ms"]
+    ok = (fwd_counts["window_attention_general_fwd"] == 64
+          and dev["general_attention_device_ms"] > 0 and mlp_ok(fwd_counts, [32, 0]) and own > 0)
+    emit({"phase": f"model_B_fp32{tail}_profile",
+          "what": "one ScOT-B fp32 b32 forward, kernel path"
+                  + (", fused_block_tail" if fused_tail else ""),
+          "forward_ms": fwd_ms, **dev,
           "general_attention_launches": fwd_counts["window_attention_general_fwd"],
-          "general_mlp_device_ms": mlp, "general_mlp_launches": fwd_counts["mlp_general_fwd"],
+          "general_mlp_launches": fwd_counts["mlp_general_fwd"],
+          "general_tail_launches": fwd_counts["mlp_cln_general_fwd"],
           **prof, "ok": ok, "card": card})
     if not ok:
-        raise SystemExit("model_B_fp32_profile phase failed")
-    step, step_counts, step_ms = phase_train(pt, wa, mlp_op, model, card, size="B",
-                                             tol=FP32_REL_TOL, name="train_B_fp32")
+        raise SystemExit(f"model_B_fp32{tail}_profile phase failed")
+    rollout_counts = (phase_rollout(pt, model, x, t, fwd_counts, card,
+                                    name="rollout_B_fp32_tail", tol=FP32_REL_TOL)
+                      if fused_tail else None)
+    step, step_counts, step_ms = phase_train(pt, wa, mlp_op, model, card, fused_tail=fused_tail,
+                                             size="B", tol=FP32_REL_TOL,
+                                             name="train_B_fp32" + tail, witness=fused_tail)
     prof = device_time_profile(step, step_ms)
-    attn = prof["busy_ms_by_group"].get(GENERAL_ATTN_GROUP, 0.0)
-    mlp = prof["busy_ms_by_group"].get(GENERAL_MLP_GROUP, 0.0)
+    dev = groups(prof)
+    own = dev["general_tail_device_ms" if fused_tail else "general_mlp_device_ms"]
     got = (step_counts["window_attention_general_fwd"],
            step_counts["window_attention_general_bwd"])
-    got_mlp = (step_counts["mlp_general_fwd"], step_counts["mlp_general_bwd"])
-    ok = got == (64, 64) and attn > 0 and got_mlp == (32, 32) and mlp > 0
-    emit({"phase": "train_B_fp32_profile", "what": "one ScOT-B fp32 b32 train step, kernel path",
-          "train_step_ms": step_ms, "general_attention_device_ms": attn,
-          "general_attention_launches_fwd_bwd": list(got), "general_mlp_device_ms": mlp,
-          "general_mlp_launches_fwd_bwd": list(got_mlp), **prof, "ok": ok, "card": card})
+    ok = (got == (64, 64) and dev["general_attention_device_ms"] > 0
+          and mlp_ok(step_counts, [32, 32]) and own > 0)
+    emit({"phase": f"train_B_fp32{tail}_profile",
+          "what": "one ScOT-B fp32 b32 train step, kernel path"
+                  + (", fused_block_tail" if fused_tail else ""),
+          "train_step_ms": step_ms, **dev,
+          "general_attention_launches_fwd_bwd": list(got),
+          "general_mlp_launches_fwd_bwd": [step_counts["mlp_general_fwd"],
+                                           step_counts["mlp_general_bwd"]],
+          "general_tail_launches_fwd_bwd": [step_counts["mlp_cln_general_fwd"],
+                                            step_counts["mlp_cln_general_bwd"]],
+          **prof, "ok": ok, "card": card})
     if not ok:
-        raise SystemExit("train_B_fp32_profile phase failed")
+        raise SystemExit(f"train_B_fp32{tail}_profile phase failed")
     del model, step
-    return step_counts
+    return fwd_counts, rollout_counts, step_counts
 
 
 def phase_tail_vs_unfused(model, tail_model, x, t, step, tail_step, card):
@@ -2579,7 +2799,7 @@ def bench_profiles(line):
     ``device_time_profile`` of one ScOT-B and one ScOT-L step at the bench's
     batches (the eager idle share against the eager step time of the
     bench's line; the graph's against its replay's wall time, median of 5),
-    and the graph's replay ms."""
+    the graph's replay ms, and each size's seconds."""
     import bench_torch as bt
 
     def profile(fn, wall_ms):
@@ -2589,6 +2809,7 @@ def bench_profiles(line):
 
     out = {}
     for size, res in (("B", line["extra"]), ("L", line["extra"]["scot_l"])):
+        t0 = time.perf_counter()
         cfg = bt.bench_config(size)
         data = bt.make_batch(cfg, res["batch"], "cuda")
         model, opt, sched = bt.build(cfg, "cuda")
@@ -2599,7 +2820,8 @@ def bench_profiles(line):
         graph = bt.GraphStep(model, opt, sched, data)
         replay_ms = host_ms(graph, iters=5)
         out[f"ScOT-{size} b{res['batch']}"] = {
-            "eager": eager, "graph": {"replay_ms": replay_ms, **profile(graph, replay_ms)}}
+            "eager": eager, "graph": {"replay_ms": replay_ms, **profile(graph, replay_ms)},
+            "seconds": time.perf_counter() - t0}
         del model, opt, sched, data, graph
         torch.cuda.empty_cache()
     return out
@@ -2634,13 +2856,16 @@ def phase_bench(card):
 
 def kernels_line(results, bwd_results, cln_results, op_results, per_forward, rollout_counts,
                  step_counts, tail_forward, tail_counts, op_counts, general, f32_counts,
-                 odd_counts, trainer_counts, trainer_steps, b32_counts, paths):
+                 odd_counts, trainer_counts, trainer_steps, b32_counts, general_tail, paths):
     """One entry per hand-written kernel. ``launches`` is the count from the
     path that runs it: the train step (the first four; with the Trainer's
     steps beside it), the fused-tail train step (the tail's two), the op's
     forward + backward path (the separate-q/k/v attention's two), the fp32
     ScOT-B train step (the general kernels, with the fp32 ScOT-T and the
-    mlp_ratio-3, D = 24 ScOT-T steps' counts beside it). ``paths`` adds,
+    mlp_ratio-3, D = 24 ScOT-T steps' counts beside it), the fp32 ScOT-B
+    fused-tail train step (the general tail kernels, ``general_tail``: with
+    its forward's and rollout's counts, and the fused-tail fp32 ScOT-T and
+    mlp_ratio-3 ScOT-T steps' beside it). ``paths`` adds,
     to every entry, its launches in each later path (``<path>_launches``:
     the remat step, the train CLI, the fine-tune, the inference CLI's
     ``eval``)."""
@@ -2674,11 +2899,29 @@ def kernels_line(results, bwd_results, cln_results, op_results, per_forward, rol
                 "path": "ScOT-B fp32 train step (launches); ScOT-T fp32 step: "
                         f"{f32_counts[name]}; D = 24, F = 3C bf16 step: {odd_counts[name]}"}
 
+    def general_tail_entry(name, replaces, rows):
+        row = next(r for r in rows if r["model"] == "B-fp32" and r["shape"].startswith("stage0"))
+        g = general_tail
+        return {"name": name, "route": "cuda", "source": csrc + "mlp_cln_general.cu",
+                "replaces": replaces, "launches": g["step"][name],
+                "max_abs_err": max(r["max_abs_err"] for r in rows),
+                "ms": row["kernel_ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                "device_ms": row["kernel_device_ms"],
+                "library_device_ms": row["library_device_ms"],
+                "shape": "ScOT-B fp32 b32 " + row["shape"],
+                "fused_tail_forward_launches": g["forward"][name],
+                "fused_tail_rollout_launches": g["rollout"][name],
+                "path": "ScOT-B fp32 fused-tail train step (launches); ScOT-T fp32 fused-tail "
+                        f"step: {g['T_fp32'][name]}; D = 24, F = 3C bf16 fused-tail step: "
+                        f"{g['T_odd'][name]}"}
+
     def tail_path(name):
         return {"fused_tail_forward_launches": tail_forward[name],
                 "fused_tail_train_step_launches": tail_counts[name]}
 
     csrc = "poseidon_tpu_torch/csrc/"
+    tail_rows = general_tail["kernels"]
     op_path = "fused_window_attention forward + backward, every ScOT-B/L/T shape and T=49"
     return _with_paths({"kernels": [
         entry("window_attention_fwd", csrc + "window_attention.cu",
@@ -2715,6 +2958,8 @@ def kernels_line(results, bwd_results, cln_results, op_results, per_forward, rol
         general_entry("mlp_general_bwd", csrc + "mlp_general.cu", "poseidon_tpu/ops/mlp.py:157",
                       general["mlp_bwd"], "stage0",
                       also_replaces="poseidon_tpu/ops/mlp.py:114, poseidon_tpu/ops/mlp.py:130"),
+        general_tail_entry("mlp_cln_general_fwd", "poseidon_tpu/ops/mlp.py:272", tail_rows["fwd"]),
+        general_tail_entry("mlp_cln_general_bwd", "poseidon_tpu/ops/mlp.py:284", tail_rows["bwd"]),
     ]}, paths)
 
 
@@ -2810,7 +3055,23 @@ def main(argv) -> int:
     del odd_model
     # ScOT-B in fp32 (the serving dtype of the inference CLI): the general
     # kernels at full width and depth.
-    b32_counts = phase_fp32_b(pt, wa_mod, mlp_op, attn_mod, card)
+    _, _, b32_counts = phase_fp32_b(pt, wa_mod, mlp_op, attn_mod, card)
+    # The general tail kernels: at their shapes, then ScOT-T in fp32 and
+    # with D = 24 and F = 3C in bf16, and ScOT-B in fp32, under the fused
+    # tail.
+    general_cln = phase_general_cln_kernels(pt, mlp_op, bound_ms, card)
+    t_tail = {}
+    for key, dtype, over, tol in (("T_fp32", torch.float32, None, FP32_REL_TOL),
+                                  ("T_odd", torch.bfloat16, ODD, MODEL_REL_TOL)):
+        tmodel, *_ = phase_model(pt, wa_mod, mlp_op, attn_mod, card, fused_tail=True, size="T",
+                                 dtype=dtype, overrides=over, tol=tol,
+                                 name=f"model_{key}_tail")
+        _, t_tail[key], _ = phase_train(pt, wa_mod, mlp_op, tmodel, card, fused_tail=True,
+                                        size="T", tol=FP32_REL_TOL if over is None
+                                        else GRAD_REL_TOL, name=f"train_{key}_tail")
+        del tmodel
+    b32_tail = dict(zip(("forward", "rollout", "step"),
+                        phase_fp32_b(pt, wa_mod, mlp_op, attn_mod, card, fused_tail=True)))
     # The Trainer.
     trainer_counts, trainer_steps = phase_trainer(pt, wa_mod, mlp_op, card, step_ms)
     # Gradient checkpointing, the two command lines, intermediates.
@@ -2830,7 +3091,8 @@ def main(argv) -> int:
              "cli_inference_eval": inference_counts, "data_parallel_rank0": dp_counts}
     emit(kernels_line(results, bwd_results, cln_results, op_results, per_forward,
                       rollout_counts, step_counts, tail_forward, tail_counts, op_counts, general,
-                      f32_counts, odd_counts, trainer_counts, trainer_steps, b32_counts, paths))
+                      f32_counts, odd_counts, trainer_counts, trainer_steps, b32_counts,
+                      {**b32_tail, **t_tail, "kernels": general_cln}, paths))
     emit(device_line())
     return 0
 

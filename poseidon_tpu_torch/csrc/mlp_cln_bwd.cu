@@ -28,13 +28,15 @@
 //  2. the MLP backward of mlp_bwd.cuh with dy := bf16(do) and the residual dy
 //     added to its fp32 dx sum before the rounding. It also sums bf16(do) for
 //     its db2, which the wrapper leaves unused: db2 is the fp32 sum of do.
-//  3. a reduce of the prologue's partials in a fixed order: db2 over all
-//     tiles, dscale and dshift over the tiles of each image.
+//  3. a reduce of the prologue's partials in a fixed order
+//     (mlp_cln_reduce.cuh): db2 over all tiles, dscale and dshift over the
+//     tiles of each image.
 // No atomics, so two calls give the same bits. The LayerNorm's backward stays
 // out of the MLP backward's dx CTAs, whose registers hold the dx sum.
 
 #include "mlp_tile.cuh"
 #include "mlp_bwd.cuh"
+#include "mlp_cln_reduce.cuh"
 
 using namespace mlp_fwd_tile;
 
@@ -133,25 +135,6 @@ mlp_cln_bwd_prologue_kernel(const bf16* __restrict__ x, const bf16* __restrict__
   });
 }
 
-// out = db2 (C) | dscale (B, C) | dshift (B, C) from the tiles' partials.
-__global__ void mlp_cln_reduce_kernel(const float* __restrict__ part, float* __restrict__ out,
-                                      int tiles, int C, int B, int tiles_per_image) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  float s = 0.f;
-  if (i < C) {
-    for (int t = 0; t < tiles; ++t) s += part[(long long)t * 3 * C + i];
-    out[i] = s;
-    return;
-  }
-  const long long j = i - C, per = (long long)B * C;
-  if (j >= 2 * per) return;
-  const int which = 1 + (int)(j / per);  // 1: dscale, 2: dshift
-  const int b = (int)((j % per) / C), c = (int)(j % C);
-  for (int t = b * tiles_per_image; t < (b + 1) * tiles_per_image; ++t)
-    s += part[((long long)t * 3 + which) * C + c];
-  out[i] = s;
-}
-
 template <int C>
 cudaError_t prologue(const bf16* x, const bf16* w1, const float* b1, const bf16* w2,
                      const float* b2, const float* scale, const bf16* dy, bf16* dob, float* part,
@@ -192,11 +175,7 @@ extern "C" int mlp_cln_bwd(const void* x, const void* w1, const void* b1, const 
   err = mlp_bwd_tile::run(xp, w1p, b1p, w2p, dobp, dyp, static_cast<bf16*>(dx),
                           static_cast<float*>(grads), static_cast<float*>(part), M, C, F, R, st);
   if (err != cudaSuccess) return (int)err;
-  const int tiles = M / 64, batch = M / L;
-  const long long n = (long long)C * (1 + 2 * batch);
-  mlp_cln_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
-      cp, static_cast<float*>(cout), tiles, C, batch, L / 64);
-  return (int)cudaGetLastError();
+  return (int)mlp_cln_reduce::reduce(cp, static_cast<float*>(cout), M, C, L, st);
 }
 
 // Registers, local-memory (spill) bytes and dynamic shared-memory bytes of

@@ -144,15 +144,15 @@ class SwinBlock(nn.Module):
         kernel path with ``fused_block_tail``, conditioning and a lead time,
         no active hidden dropout, and where ``use_fused_tail`` takes the
         stage (the JAX package's rule, ``models/scot.py:204-209``, with the
-        port's gate in place of its TPU VMEM budget: on the card, only the
-        widths and the dtype the tail's kernels take)."""
+        port's gate in place of its TPU VMEM budget: the MLP kernel's
+        stages with whole 64-row tiles an image, in bf16 and fp32, on the
+        tail's Hopper kernels or its general ones)."""
         cfg = self.config
         fc = self.intermediate.dense
         return (self.kernels_on() and cfg.fused_block_tail
                 and cfg.use_conditioning and time is not None
                 and (cfg.hidden_dropout_prob == 0.0 or not self.training)
-                and use_fused_tail(fc.in_features, tokens, fc.out_features, self.dtype,
-                                   time.device.type))
+                and use_fused_tail(fc.in_features, tokens, fc.out_features))
 
     def forward(self, x: torch.Tensor, time: Optional[torch.Tensor],
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:

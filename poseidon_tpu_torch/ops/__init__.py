@@ -22,6 +22,8 @@ COUNTERS = (
     ("fused_window_attention_general_bwd", _wa.fused_window_attention_bwd, "launches_general"),
     ("mlp_general_fwd", _mlp.mlp, "launches_general"),
     ("mlp_general_bwd", _mlp.mlp_bwd, "launches_general"),
+    ("mlp_cln_general_fwd", _mlp.mlp_cln, "launches_general"),
+    ("mlp_cln_general_bwd", _mlp.mlp_cln_bwd, "launches_general"),
 )
 
 

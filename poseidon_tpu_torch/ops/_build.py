@@ -27,7 +27,7 @@ from typing import Dict, Iterable, Sequence
 import torch
 
 SOURCES = ("window_attention", "window_attention_bwd", "window_attention_general", "mlp",
-           "mlp_bwd", "mlp_cln", "mlp_cln_bwd", "mlp_general")
+           "mlp_bwd", "mlp_cln", "mlp_cln_bwd", "mlp_general", "mlp_cln_general")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -36,7 +36,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # kernel instantiations, so their device-code optimisation and ptxas run on
 # every core (the other sources' builds are shorter and overlap).
 EXTRA_FLAGS = {"window_attention_general": ("--split-compile=0",),
-               "mlp_general": ("--split-compile=0",)}
+               "mlp_general": ("--split-compile=0",),
+               "mlp_cln_general": ("--split-compile=0",)}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 

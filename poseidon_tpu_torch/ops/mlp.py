@@ -26,10 +26,11 @@ function of ``_fwd_kernel_dm_cln`` / ``_bwd_kernel_dm_cln``; see
 A CPU tensor goes to the plain version. A CUDA tensor goes to a kernel or
 raises: the Hopper kernels (``csrc/mlp.cu``, ``csrc/mlp_bwd.cu``,
 ``csrc/mlp_cln.cu``, ``csrc/mlp_cln_bwd.cu``) for bf16 with C in
-``KERNEL_WIDTHS`` and F % 64 == 0, the general MLP kernels
-(``csrc/mlp_general.cu``: wgmma, fp32 operands as three tf32 products of a
-hi/lo split, erff GELU) for fp32 operands and any other C <= 1024 and F <=
-4096 (:func:`mlp_kernel_for`). The fused tail has only the Hopper kernels.
+``KERNEL_WIDTHS`` and F % 64 == 0, the general kernels
+(``csrc/mlp_general.cu`` for the MLP, ``csrc/mlp_cln_general.cu`` for the
+fused tail, both on ``csrc/mlp_general.cuh``: wgmma, fp32 operands as three
+tf32 products of a hi/lo split, erff GELU) for fp32 operands and any other
+C <= 1024 and F <= 4096 (:func:`mlp_kernel_for`).
 """
 
 from __future__ import annotations
@@ -98,12 +99,11 @@ def _check(x2, w1, b1, w2, b2=None):
     return m, c, f, kernel
 
 
-def _check_tail_kernel(kernel: str, c: int, f: int, dtype: torch.dtype):
-    """The fused tail has only its Hopper kernels."""
-    if kernel != "wgmma":
-        raise ValueError(f"mlp_cln kernel takes bf16 with C in {KERNEL_WIDTHS} and F % 64 == 0, "
-                         f"got {dtype}, C={c}, F={f} (fp32 and other widths: ROADMAP queue 2; "
-                         f"use_fused_tail sends such blocks to the unfused branch)")
+def _tail_library(kernel: str) -> str:
+    """The library of the fused tail's kernels for a call that ``kernel``
+    (:func:`mlp_kernel_for`) takes: ``"mlp_cln"`` (the Hopper kernels) for
+    ``"wgmma"``, ``"mlp_cln_general"`` for ``"general"``."""
+    return "mlp_cln" if kernel == "wgmma" else "mlp_cln_general"
 
 
 def _check_dy(dy2, x2, kernel="wgmma"):
@@ -225,6 +225,11 @@ def _general_scratch(lib, bwd, m, c, f, r, fp32, device):
     partial sums and, for the backward, du, g, x and dy transposed)."""
     nbytes = ctypes.c_longlong(0)
     err = lib.mlp_general_scratch(bwd, m, c, f, r, fp32, ctypes.addressof(nbytes))
+    return _scratch_buffer(lib, err, nbytes, device)
+
+
+def _scratch_buffer(lib, err, nbytes, device):
+    """The scratch buffer of a general kernel's plan query's answer."""
     if err != 0:
         raise RuntimeError(f"mlp general kernel plan failed: {_build.error_string(lib, err)}")
     return torch.empty(max(1, nbytes.value), dtype=torch.uint8, device=device)
@@ -303,7 +308,8 @@ def kernel_info() -> dict:
     forward, rows and weight kernels, by the output width a warpgroup holds
     (``GENERAL_WIDTHS``; dynamic shared memory of the plan at C = that width,
     F = 4C, M = 32768; the rows kernel whose warpgroups split a step at 192
-    only). Builds and loads them."""
+    only), and of the general tail's own four (its forward kernel by output
+    width, its row kernels by C, its reduce). Builds and loads them."""
     out = {}
     for name, sigs, entry in (("mlp", _SIGNATURES, "mlp_fwd_info"),
                               ("mlp_bwd", _BWD_SIGNATURES, "mlp_bwd_info"),
@@ -317,6 +323,18 @@ def kernel_info() -> dict:
                 raise RuntimeError(f"{name} info failed: {err}")
             out[f"{name} C={c}"] = {"registers": vals[0], "spill_bytes": vals[1],
                                     "smem_bytes": vals[2]}
+    fn = _build.load("mlp_cln_general", _CLN_GENERAL_SIGNATURES).mlp_cln_general_info
+    for kernel, kname, widths in ((0, "fwd", GENERAL_WIDTHS), (1, "fwd_rows", CLN_ROW_WIDTHS),
+                                  (2, "bwd_rows", CLN_ROW_WIDTHS), (3, "reduce", (0,))):
+        for fp32 in (0, 1):
+            for nw in widths:
+                vals = (ctypes.c_int * 3)()
+                err = fn(kernel, fp32, nw, ctypes.addressof(vals))
+                if err != 0:
+                    raise RuntimeError(f"mlp_cln_general info failed: {err}")
+                key = f"mlp_cln_general {kname} {'fp32' if fp32 else 'bf16'}"
+                out[key + (f" NW={nw}" if kernel == 0 else f" C={nw}" if nw else "")] = {
+                    "registers": vals[0], "spill_bytes": vals[1], "smem_bytes": vals[2]}
     fn = _build.load("mlp_general", _GENERAL_SIGNATURES).mlp_general_info
     names = ("fwd", "bwd_rows", "bwd_dw", "prep", "sum_splits", "bwd_reduce", "bwd_rows_split")
     for kernel, kname in enumerate(names):
@@ -426,15 +444,33 @@ def _forward_cln(x, w1, b1, w2, b2, scale, shift, eps):
         raise ValueError(f"mlp_cln: unsupported device {x.device}")
     x2 = x.reshape(-1, x.shape[-1])
     m, c, f, kernel = _check(x2, w1, b1, w2, b2)
-    _check_tail_kernel(kernel, c, f, x.dtype)
+    name = _tail_library(kernel)
     _check_tail(x, scale, shift)
     out = torch.empty_like(x2)
-    lib = _build.load("mlp_cln", _CLN_SIGNATURES)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if name == "mlp_cln_general":
+        lib = _build.load(name, _CLN_GENERAL_SIGNATURES)
+        fp32 = int(x.dtype == torch.float32)
+        scratch = _cln_general_scratch(lib, 0, m, c, f, x.shape[1], 0, fp32, x.device)
+        _build.launch(lib, "mlp_cln_general_fwd", x.device, x2.data_ptr(), w1.data_ptr(),
+            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+            out.data_ptr(), scratch.data_ptr(), m, c, f, x.shape[1], float(eps), fp32, stream)
+        mlp_cln.launches_general += 1
+        return out.reshape(x.shape)
+    lib = _build.load(name, _CLN_SIGNATURES)
     _build.launch(lib, "mlp_cln_fwd", x.device, x2.data_ptr(), w1.data_ptr(), b1.data_ptr(),
         w2.data_ptr(), b2.data_ptr(), scale.data_ptr(), shift.data_ptr(), out.data_ptr(), m, c, f,
-        x.shape[1], float(eps), torch.cuda.current_stream(x.device).cuda_stream)
+        x.shape[1], float(eps), stream)
     mlp_cln.launches += 1
     return out.reshape(x.shape)
+
+
+def _cln_general_scratch(lib, bwd, m, c, f, l, r, fp32, device):
+    """The general tail kernels' scratch for a call (the general MLP's, and
+    the partials of o, cast(do) and the tiles' column sums)."""
+    nbytes = ctypes.c_longlong(0)
+    err = lib.mlp_cln_general_scratch(bwd, m, c, f, l, r, fp32, ctypes.addressof(nbytes))
+    return _scratch_buffer(lib, err, nbytes, device)
 
 
 def mlp_cln_bwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
@@ -448,13 +484,28 @@ def mlp_cln_bwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.T
     x2 = x.reshape(-1, x.shape[-1])
     dy2 = dy.reshape(-1, dy.shape[-1])
     m, c, f, kernel = _check(x2, w1, b1, w2, b2)
-    _check_tail_kernel(kernel, c, f, x.dtype)
+    name = _tail_library(kernel)
     _check_tail(x, scale)
-    _check_dy(dy2, x2)
+    _check_dy(dy2, x2, kernel)
     b = x.shape[0]
     n_out = 2 * f * c + f + c
-    r = bwd_splits(m, c, f)
     f32 = dict(dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if name == "mlp_cln_general":
+        r = general_bwd_splits(m, c, f)
+        fp32 = int(x.dtype == torch.float32)
+        dx = torch.empty_like(x2)
+        grads = torch.empty(n_out, **f32)     # dw1 | dw2 | db1 | sum of cast(do), unused
+        cout = torch.empty(c + 2 * b * c, **f32)  # db2 | dscale | dshift
+        lib = _build.load(name, _CLN_GENERAL_SIGNATURES)
+        scratch = _cln_general_scratch(lib, 1, m, c, f, x.shape[1], r, fp32, x.device)
+        _build.launch(lib, "mlp_cln_general_bwd", x.device, x2.data_ptr(), w1.data_ptr(),
+            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), scale.data_ptr(), dy2.data_ptr(),
+            dx.data_ptr(), grads.data_ptr(), cout.data_ptr(), scratch.data_ptr(), m, c, f,
+            x.shape[1], r, float(eps), fp32, stream)
+        mlp_cln_bwd.launches_general += 1
+        return _cln_grads(dx, grads, cout, x.shape, b, c, f)
+    r = bwd_splits(m, c, f)
     dob = torch.empty_like(x2)            # bf16(do), the MLP backward's cotangent
     dx = torch.empty_like(x2)
     grads = torch.empty(n_out, **f32)     # dw1 | dw2 | db1 | sum of bf16(do), unused
@@ -465,11 +516,18 @@ def mlp_cln_bwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.T
     _build.launch(lib, "mlp_cln_bwd", x.device, x2.data_ptr(), w1.data_ptr(), b1.data_ptr(),
         w2.data_ptr(), b2.data_ptr(), scale.data_ptr(), dy2.data_ptr(), dob.data_ptr(),
         dx.data_ptr(), grads.data_ptr(), part.data_ptr(), cpart.data_ptr(), cout.data_ptr(), m, c,
-        f, x.shape[1], r, float(eps), torch.cuda.current_stream(x.device).cuda_stream)
+        f, x.shape[1], r, float(eps), stream)
     mlp_cln_bwd.launches += 1
+    return _cln_grads(dx, grads, cout, x.shape, b, c, f)
+
+
+def _cln_grads(dx, grads, cout, x_shape, b, c, f):
+    """(dx, dw1, db1, dw2, db2, dscale, dshift) from the tail backward's
+    outputs: grads = dw1 | dw2 | db1 | (unused), cout = db2 | dscale |
+    dshift."""
     dw1, dw2, db1, _ = grads.split([f * c, c * f, f, c])
     db2, dscale, dshift = cout.split([c, b * c, b * c])
-    return (dx.reshape(x.shape), dw1.view(f, c), db1, dw2.view(c, f), db2,
+    return (dx.reshape(x_shape), dw1.view(f, c), db1, dw2.view(c, f), db2,
             dscale.view(b, c), dshift.view(b, c))
 
 
@@ -496,35 +554,52 @@ def mlp_cln(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tenso
             eps: float = 1e-5) -> torch.Tensor:
     """The fused Swin block tail ``x + scale * cln(mlp(x)) + shift`` of a
     (B, L, C) stream with per-image (B, C) fp32 scale and shift, with its
-    backward. ``mlp_cln.launches`` counts forward kernel launches,
-    ``mlp_cln_bwd.launches`` backward ones."""
+    backward. ``mlp_cln.launches`` counts forward launches of the Hopper
+    kernel, ``mlp_cln_bwd.launches`` backward ones; their
+    ``launches_general`` count the general kernel's."""
     return MlpClnFn.apply(x, w1, b1, w2, b2, scale, shift, eps)
 
 
-def use_fused_tail(c: int, tokens_per_image: int, f: Optional[int] = None,
-                   dtype: torch.dtype = torch.bfloat16, device_type: str = "cuda") -> bool:
+def use_fused_tail(c: int, tokens_per_image: int, f: Optional[int] = None) -> bool:
     """The port's gate of the fused block tail: the MLP kernel's rule
-    (:func:`use_mlp_kernel`), whole 64-row tiles per image, and, on the
-    card, operands the tail's Hopper kernels take (bf16, C in
-    ``KERNEL_WIDTHS``, F % 64 == 0; F defaults to 4C). On the CPU the tail's
-    plain version takes any operands, so only the first two apply there.
-    Any other block runs the unfused branch (the MLP kernel and the plain
-    norm), which computes the same function. At ScOT-T/S and ScOT-B on
-    128x128 inputs this picks stages 0-1, the blocks where the JAX
-    package's TPU VMEM budget (``dm_eligible(..., cln=True)``) also takes
-    its kernel. At ScOT-L that budget refuses every stage and this rule
-    takes stages 0-1. Both paths compute the same function, so only the
-    speed differs."""
+    (:func:`use_mlp_kernel`: C <= 1024, F <= 4096, F defaulting to 4C, at
+    least 256 tokens an image) and whole 64-row tiles per image, in either
+    dtype and on either device. On the card the tail's Hopper kernels take
+    bf16 with C in ``KERNEL_WIDTHS`` and F % 64 == 0 and its general kernels
+    every other such block (fp32, F = 3C, other widths:
+    :func:`mlp_kernel_for`); on the CPU its plain version takes them all.
+    Any other block runs the unfused branch (the MLP kernel or two GEMMs,
+    and the plain norm), which computes the same function. At ScOT-T/S and
+    ScOT-B on 128x128 inputs this picks stages 0-1, the blocks where the
+    JAX package's TPU VMEM budget (``dm_eligible(..., cln=True)``) also
+    takes its kernel, in bf16 and fp32, but for ScOT-B stage 0 in fp32,
+    which that budget refuses by 0.2 MB. At ScOT-L the budget refuses every
+    stage and this rule takes stages 0-1. Both paths compute the same
+    function, so only the speed differs."""
     f = 4 * c if f is None else f
-    return (use_mlp_kernel(c, tokens_per_image, f) and tokens_per_image % 64 == 0
-            and (device_type != "cuda" or mlp_kernel_for(c, f, dtype) == "wgmma"))
+    return use_mlp_kernel(c, tokens_per_image, f) and tokens_per_image % 64 == 0
 
 
 mlp_cln.launches = 0
 mlp_cln_bwd.launches = 0
+mlp_cln.launches_general = 0
+mlp_cln_bwd.launches_general = 0
 _F = ctypes.c_float
 # x, w1, b1, w2, b2, scale, shift, out, M, C, F, L, eps, stream
 _CLN_SIGNATURES = {"mlp_cln_fwd": (_P,) * 8 + (_I,) * 4 + (_F, _P), "mlp_cln_fwd_info": (_I, _P)}
 # x, w1, b1, w2, b2, scale, dy, dob, dx, grads, part, cpart, cout, M, C, F, L, R, eps, stream
 _CLN_BWD_SIGNATURES = {"mlp_cln_bwd": (_P,) * 13 + (_I,) * 5 + (_F, _P),
                        "mlp_cln_bwd_info": (_I, _P)}
+_CLN_GENERAL_SIGNATURES = {
+    # x, w1, b1, w2, b2, scale, shift, out, scratch, M, C, F, L, eps, fp32, stream
+    "mlp_cln_general_fwd": (_P,) * 9 + (_I,) * 4 + (_F, _I, _P),
+    # x, w1, b1, w2, b2, scale, dy, dx, grads, cout, scratch, M, C, F, L, R, eps, fp32, stream
+    "mlp_cln_general_bwd": (_P,) * 11 + (_I,) * 5 + (_F, _I, _P),
+    # bwd, M, C, F, L, R, fp32, long long out: scratch bytes
+    "mlp_cln_general_scratch": (_I,) * 7 + (_P,),
+    # kernel, fp32, width, int[3] out: registers, spill bytes, shared-memory bytes
+    "mlp_cln_general_info": (_I, _I, _I, _P),
+}
+# Widths at which the general tail's row kernels are reported: one a class
+# of values a lane holds (C <= 128, 256, 512, 1024).
+CLN_ROW_WIDTHS = (128, 256, 512, 1024)

@@ -100,13 +100,14 @@ def test_launch_makes_the_operands_card_current(monkeypatch):
 
 def test_every_entry_point_launches_through_launch():
     """No wrapper calls a library's entry point itself (only the general
-    MLP's host-side scratch query, which launches nothing)."""
+    MLP's and the general tail's host-side scratch queries, which launch
+    nothing)."""
     for name in ("window_attention.py", "mlp.py"):
         tree = ast.parse((REPO / "poseidon_tpu_torch" / "ops" / name).read_text())
         direct = [node.func.attr for node in ast.walk(tree)
                   if isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
                   and isinstance(node.func.value, ast.Name) and node.func.value.id == "lib"]
-        assert set(direct) <= {"mlp_general_scratch"}, (name, direct)
+        assert set(direct) <= {"mlp_general_scratch", "mlp_cln_general_scratch"}, (name, direct)
         launched = [node.args[1].value for node in ast.walk(tree)
                     if isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
                     and node.func.attr == "launch"]

@@ -11,7 +11,8 @@ operands and shapes the wgmma kernels do not take, which on the card go to
   bf16.
 - The dispatch rules: the wgmma kernels for bf16 at every ScOT-T/S/B/L
   shape; the general ones for fp32, D=24, T > 256 and F % 64 != 0; the fused
-  tail only where its Hopper kernels take the block (on the card).
+  tail at every MLP-kernel stage with whole 64-row tiles an image, on its
+  Hopper kernels or its general ones as the MLP's.
 - The wrappers' limits.
 - A toy ScOT with head width 24 and mlp_ratio 3 under "pallas": forward and
   the train loss's gradients against the flax model.
@@ -120,16 +121,17 @@ def test_dispatch_rules(size):
         if mlp_op.use_mlp_kernel(c, l, f):
             assert mlp_op.mlp_kernel_for(c, f, bf16) == "wgmma"
             assert mlp_op.mlp_kernel_for(c, f, f32) == "general"
-            assert mlp_op.use_fused_tail(c, l, f, bf16) == (l % 64 == 0)
-            assert not mlp_op.use_fused_tail(c, l, f, f32)
-            assert mlp_op.use_fused_tail(c, l, f, f32, device_type="cpu") == (l % 64 == 0)
+            assert mlp_op.use_fused_tail(c, l, f) == (l % 64 == 0)
+            assert mlp_op._tail_library(mlp_op.mlp_kernel_for(c, f, bf16)) == "mlp_cln"
+            assert mlp_op._tail_library(mlp_op.mlp_kernel_for(c, f, f32)) == "mlp_cln_general"
     for t in (257, 400, 576, 1024):
         assert wa.attention_kernel_for(bf16, t, 32) == "general"
     for d in (1, 8, 24, 48, 128):
         assert wa.attention_kernel_for(bf16, 256, d) == "general"
     for c, f in ((48, 144), (96, 288), (64, 256), (17, 33)):
         assert mlp_op.mlp_kernel_for(c, f, bf16) == "general"
-        assert mlp_op.use_mlp_kernel(c, 1024, f) and not mlp_op.use_fused_tail(c, 1024, f, bf16)
+        assert mlp_op.use_mlp_kernel(c, 1024, f) and mlp_op.use_fused_tail(c, 1024, f)
+        assert mlp_op._tail_library("general") == "mlp_cln_general"
     assert not mlp_op.use_mlp_kernel(96, 1024, 8192) and not mlp_op.use_mlp_kernel(2048, 1024)
 
 
@@ -150,8 +152,11 @@ def test_wrapper_limits():
     with pytest.raises(ValueError, match="F <= 4096"):
         mlp_op._check(torch.zeros(4, 8), torch.zeros(4097, 8), torch.zeros(4097),
                       torch.zeros(8, 4097), torch.zeros(8))
-    with pytest.raises(ValueError, match="mlp_cln kernel takes bf16"):
-        mlp_op._check_tail_kernel("general", 48, 144, torch.bfloat16)
+    with pytest.raises(ValueError, match="C <= 1024"):
+        mlp_op._check(torch.zeros(4, 1025), torch.zeros(8, 1025), torch.zeros(8),
+                      torch.zeros(1025, 8), torch.zeros(1025))
+    with pytest.raises(ValueError, match="L % 64"):
+        mlp_op._check_tail(torch.zeros(2, 96, 48), torch.zeros(2, 48), torch.zeros(2, 48))
 
 
 # A toy ScOT with head width 24 at both stages and F = 3C, its stage 0 long

@@ -10,8 +10,9 @@ bf16 at different points). The general kernels (fp32 operands and the
 shapes the wgmma kernels refuse) are held to the fp32 plain versions by
 relative L2 <= 1e-4 (TF32 off in the plain versions; the sum order, and for
 the attention kernels the 3xTF32 split, are the only differences) and in
-bf16 as above. They need a CUDA card and skip without one. This file imports neither JAX
-nor the JAX package, so it runs on a machine without them:
+bf16 as above; so are the general fused-tail kernels. They need a CUDA card
+and skip without one. This file imports neither JAX nor the JAX package, so
+it runs on a machine without them:
 
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda --noconftest -q
 """
@@ -456,6 +457,46 @@ def test_general_mlp_kernels_match_plain(m, c, f, dtype):
     again = mlp_op.mlp_bwd(x, w1, b1, w2, dy)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(grads, again)), "not bit-identical"
+
+
+# (B, L, C, F, dtype) of the general tail kernels (csrc/mlp_cln_general.cu):
+# ScOT-B's fp32 stages (C = 96: whole rows in one column block, the norm in
+# the forward kernel's registers; C = 192 at 256 tokens an image: F split
+# across CTAs, the norm in a row kernel), ScOT-L's C = 384 (two column
+# blocks), ScOT-T's mlp_ratio-3 widths in bf16, and odd widths: C not a
+# multiple of 8 or 32, F not a multiple of 64, C = 1024 with F = 4096, in
+# both dtypes, with one and several images of 64 rows.
+GENERAL_CLN = [(4, 1024, 96, 384, "fp32"), (8, 256, 192, 768, "fp32"),
+               (4, 256, 384, 1536, "fp32"), (4, 1024, 48, 144, "bf16"),
+               (4, 256, 96, 288, "bf16"), (3, 64, 17, 33, "fp32"), (3, 64, 17, 33, "bf16"),
+               (2, 128, 200, 600, "bf16"), (2, 192, 64, 256, "bf16"),
+               (1, 128, 1024, 4096, "fp32"), (2, 64, 1024, 4096, "bf16")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,c,f,dtype", GENERAL_CLN)
+def test_general_cln_kernels_match_plain(b, l, c, f, dtype):
+    _needs_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = torch.float32 if dtype == "fp32" else torch.bfloat16
+    x, w1, b1, w2, b2, scale, shift, dy = _cln_inputs(b, l, c, 14, f)
+    x, w1, w2, dy = (a.to(dt) for a in (x, w1, w2, dy))
+    assert mlp_op._tail_library(mlp_op.mlp_kernel_for(c, f, dt)) == "mlp_cln_general"
+    before = (mlp_op.mlp_cln.launches_general, mlp_op.mlp_cln_bwd.launches_general)
+    out = mlp_op.mlp_cln(x, w1, b1, w2, b2, scale, shift)
+    _general_check(out, mlp_op.mlp_cln_plain(x, w1, b1, w2, b2, scale, shift, 1e-5), dtype)
+    args = (x, w1, b1, w2, b2, scale, 1e-5, dy)
+    grads = mlp_op.mlp_cln_bwd(*args)
+    assert (mlp_op.mlp_cln.launches_general, mlp_op.mlp_cln_bwd.launches_general) == \
+        (before[0] + 1, before[1] + 1)
+    ref = mlp_op.mlp_cln_bwd_plain(*args)
+    _general_check(grads[0], ref[0], dtype)
+    for a, r in zip(grads[1:], ref[1:]):
+        assert a.shape == r.shape and a.dtype == torch.float32
+        _general_check(a, r, dtype, sums=True)
+    again = mlp_op.mlp_cln_bwd(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, r) for a, r in zip(grads, again)), "not bit-identical"
 
 
 @pytest.mark.cuda
