@@ -34,6 +34,9 @@ Phases, one JSON line each (any failure ends the run with a non-zero exit):
    error and relative L2 of every output, kernel / plain / library times
    (the library time is the autograd backward of the forward's library
    call), the bound, and two calls on the same inputs compared bit for bit;
+   the attention's rows carry its plan (windows a tile, groups, CTAs, CTAs
+   an SM, dbm partial bytes), and its rows at the bench's batches (ScOT-B
+   128, ScOT-L 64) follow, checked the same way (no plain-version time);
 7. train: the ScOT-B train step (forward, pixel mask, grouped L1 loss,
    backward through the kernels, global-norm clip, grouped AdamW) at batch
    32 on the weights of phase 3: the kernel path's loss and gradients
@@ -516,10 +519,39 @@ def phase_kernels(pt, wa, mlp_op, attn_mod, bound_ms, card):
     return results
 
 
+def bwd_plan_row(wa, n, nw, heads, t, d):
+    """The backward kernel's plan for a shape (``bwd_plan`` with the clusters
+    this card holds at once): windows a tile P, groups G, CTAs, the resident
+    clusters and CTAs an SM it counts on, and its dbm partials' bytes with
+    the time to write and read them once at 3.35 TB/s (beside the bound,
+    which counts what the function must move)."""
+    resident = wa.bwd_resident_clusters(t, d)
+    pack, groups, ctas = wa.bwd_plan(n, nw, heads, t, resident)
+    nbytes = groups * nw * heads * t * t * 4
+    return {"P": pack, "G": groups, "ctas": ctas, "resident_clusters": resident,
+            "ctas_per_sm": 2 if t <= 64 else 1, "partial_bytes": nbytes,
+            "partial_ms": 2 * nbytes / 3.35e9}
+
+
+def bench_attention_cases(pt):
+    """(model, tag, n_windows, T, heads, D, nW, window, res, shift) of every
+    attention block kind at the bench's batches: ScOT-B 128, ScOT-L 64."""
+    out = []
+    for name, batch in (("B", 128), ("L", 64)):
+        cfg = pt.make_config(name, image_size=128, num_channels=4, num_out_channels=4)
+        out += [(f"{name} b{batch}", *geo) for geo in attention_shapes(cfg, batch)]
+    return out
+
+
 def phase_bwd_kernels(pt, wa, mlp_op, attn_mod, bound_ms, card):
+    """The backward kernels against their plain versions with times, at
+    batch 32; then the attention backward at the bench's batches (its plan,
+    kernel and library times; the plain version only as the reference)."""
     gen = torch.Generator().manual_seed(4)
-    results = {"attention": [], "mlp": []}
-    for model_name, tag, n, t, heads, d, nw, window, res, shift in attention_cases(pt):
+    results = {"attention": [], "mlp": [], "attention_bench": []}
+    cases = [(c, False) for c in attention_cases(pt)]
+    cases += [(c, True) for c in bench_attention_cases(pt)]
+    for (model_name, tag, n, t, heads, d, nw, window, res, shift), at_bench in cases:
         qkv, qb, bm, scale = attention_case(attn_mod, n, t, heads, d, nw, window,
                                             res, shift, gen)
         do = torch.randn(n, t, heads * d, generator=gen).to("cuda", torch.bfloat16)
@@ -530,15 +562,17 @@ def phase_bwd_kernels(pt, wa, mlp_op, attn_mod, bound_ms, card):
         torch.cuda.synchronize()
         errs = compare(("dqkv", "dqb", "dbm", "dscale"), out, ref)
         ok = backward_ok(errs, out, ref, again, ATTN_TOL)
+        del ref, again
         bms, by = attention_bwd_bound(n, t, heads, d, nw, bound_ms)
         row = {"phase": "bwd_kernel", "kernel": "window_attention_bwd", "model": model_name,
                "shape": f"{tag}: windows={n} T={t} H={heads} D={d} nW={nw}",
-               "groups": wa.bwd_groups(n, nw, heads, t), "errors": errs,
+               "plan": bwd_plan_row(wa, n, nw, heads, t, d), "errors": errs,
                "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
                "tol": f"dqkv allclose atol=rtol={ATTN_TOL}; dqb, dbm, dscale rel L2 <= "
                       f"{SUM_REL_TOL}; second call bit-identical", "ok": ok,
                "kernel_ms": cuda_ms(lambda: wa.window_attention_bwd(*args)),
-               "plain_ms": cuda_ms(lambda: wa.window_attention_bwd_plain(*args)),
+               "plain_ms": None if at_bench else cuda_ms(
+                   lambda: wa.window_attention_bwd_plain(*args)),
                "library_ms": cuda_ms(attention_library_bwd(*split_qkv(qkv, qb, heads),
                                                            bm, scale, do)),
                "kernel_device_ms": device_ms(lambda: wa.window_attention_bwd(*args)),
@@ -546,10 +580,11 @@ def phase_bwd_kernels(pt, wa, mlp_op, attn_mod, bound_ms, card):
                    *split_qkv(qkv, qb, heads), bm, scale, do)),
                "bound_ms": bms, "bound_by": by, "card": card}
         emit(row)
-        results["attention"].append(row)
+        results["attention_bench" if at_bench else "attention"].append(row)
         if not ok:
-            raise SystemExit(f"window_attention_bwd kernel disagrees at {row['shape']}")
-        del qkv, do, out, again, ref
+            raise SystemExit(f"window_attention_bwd kernel disagrees at {model_name} "
+                             f"{row['shape']}")
+        del qkv, do, out
     for model_name in ("B", "L", "T"):
         cfg = pt.make_config(model_name, image_size=128, num_channels=4, num_out_channels=4)
         for tag, m, c, f in mlp_shapes(cfg, BATCH, mlp_op):
@@ -821,7 +856,7 @@ def phase_fused_attention(pt, wa, attn_mod, bound_ms, card):
         ok = backward_ok(errs, out, ref, again, ATTN_TOL, close=3)
         bms, by = attention_bwd_bound(n, t, heads, d, nw, bound_ms)
         row = {"phase": "fused_attention_kernel", "kernel": "fused_window_attention_bwd",
-               "model": model_name, "shape": shape, "groups": wa.bwd_groups(n, nw, heads, t),
+               "model": model_name, "shape": shape, "plan": bwd_plan_row(wa, n, nw, heads, t, d),
                "errors": errs, "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
                "tol": f"dq, dk, dv allclose atol=rtol={ATTN_TOL}; dbm, dscale rel L2 <= "
                       f"{SUM_REL_TOL}; second call bit-identical", "ok": ok,

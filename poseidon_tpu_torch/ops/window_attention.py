@@ -44,6 +44,7 @@ operands as 3xTF32) for fp32 operands and any other T <= 1024 and D <= 128
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -222,20 +223,77 @@ def window_attention_bwd_plain(qkv: torch.Tensor, qb: torch.Tensor, bm: torch.Te
     return dqkv, dq.float().sum(dim=(0, 1)).reshape(-1), dbm, dscale
 
 
-def bwd_groups(n: int, nw: int, heads: int, t: int) -> int:
-    """Window groups G of the backward kernel: a cluster of T/64 CTAs (one
-    at T <= 64) walks the windows of one group that share a bias slot and a
-    head, and writes one fp32 partial of dbm per group; enough groups to
-    fill the card's SMs, and the dbm partials (G x nW x H x T x T fp32)
-    kept within 8 MiB."""
-    units = nw * heads * _bwd_cluster(t)
-    g = min(n // nw, max(1, -(-_SMS // units)))
-    return max(1, min(g, (8 << 20) // (nw * heads * t * t * 4)))
+BWD_PARTIAL_BUDGET = 32 << 20  # bytes of the backward's dbm partials
+
+
+def bwd_pack(t: int) -> int:
+    """Windows P a 64-key tile of the backward kernel holds: 64 // T at T
+    <= 32 (block-diagonal, windows of one bias slot and head), else 1."""
+    return 64 // t if t <= 32 else 1
+
+
+def _bwd_nk(t: int) -> int:
+    """Padded window NK of the backward kernel: 64, 128 or 256."""
+    return 64 if t <= 64 else 128 if t <= 128 else 256
 
 
 def _bwd_cluster(t: int) -> int:
     """CTAs per cluster of the backward kernel: one per 64 padded keys."""
-    return 1 if t <= 64 else 2 if t <= 128 else 4
+    return _bwd_nk(t) // 64
+
+
+# Clusters of the backward kernel resident at once on an H100 SXM (132 SMs),
+# by padded window NK, as cudaOccupancyMaxActiveClusters gives them on the
+# NVIDIA H100 80GB HBM3 (``kernel_info``'s "clusters"): two CTAs an SM at NK
+# = 64 (three at D = 16), and clusters of two and four CTAs at one CTA an
+# SM, as the card's GPCs place them: 66 and 30, not 132 / 2 and 132 / 4.
+# On the card the wrappers use the card's own count.
+H100_BWD_CLUSTERS = {64: 264, 128: 66, 256: 30}
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_plan(n: int, nw: int, heads: int, t: int, clusters: int | None = None):
+    """(P, G, CTAs) of the backward kernel for ``n`` windows of size ``t``,
+    ``nw`` bias slots and ``heads`` heads, on a card that holds ``clusters``
+    of its clusters at once (default: ``H100_BWD_CLUSTERS``). A cluster of
+    T/64 CTAs (one at T <= 64) takes one bias slot and head and walks the
+    tiles (P windows each, :func:`bwd_pack`) of one of G groups, and writes
+    one fp32 dbm partial per group. G is the one that finishes in the fewest
+    rounds, a round being one tile of every resident cluster: waves of
+    resident clusters x the longest walk, the smaller G on a tie, with the
+    partials (G x nW x H x T x T fp32) within ``BWD_PARTIAL_BUDGET``."""
+    pack = bwd_pack(t)
+    tiles = -(-(n // nw) // pack)
+    per_group = nw * heads
+    slots = clusters or H100_BWD_CLUSTERS[_bwd_nk(t)]
+    cap = max(1, min(tiles, BWD_PARTIAL_BUDGET // (nw * heads * t * t * 4)))
+    best = (None, 1)
+    for g in range(1, cap + 1):
+        rounds = -(-per_group * g // slots) * -(-tiles // g)
+        if best[0] is None or rounds < best[0]:
+            best = (rounds, g)
+    return pack, best[1], per_group * best[1] * _bwd_cluster(t)
+
+
+_resident = {}
+
+
+def bwd_resident_clusters(t: int, d: int, device=None) -> int:
+    """Clusters of the backward kernel's instantiation for window size
+    ``t`` and head width ``d`` that the card holds at once (the occupancy
+    calculator, once per card and instantiation; builds and loads the
+    kernel)."""
+    index = torch.cuda.current_device() if device is None else device.index
+    key = (index, _bwd_nk(t), d)
+    if key not in _resident:
+        vals = (ctypes.c_int * 7)()
+        with torch.cuda.device(index):
+            err = _build.load("window_attention_bwd", _BWD_SIGNATURES).window_attention_bwd_info(
+                t, d, ctypes.addressof(vals))
+        if err != 0:
+            raise RuntimeError(f"window_attention_bwd info failed: {err}")
+        _resident[key] = vals[6]
+    return _resident[key]
 
 
 def window_attention_bwd(qkv: torch.Tensor, qb: torch.Tensor, bm: torch.Tensor,
@@ -273,7 +331,7 @@ def _bwd_scratch(n, t, heads, d, nw, device):
     """The backward kernel's window groups G and its fp32 outputs and
     scratch: dqb (C,), dbm (nW, H, T, T), dscale (H,), and the per-group
     partials of dbm and (per cluster rank) of dqb | dscale."""
-    g = bwd_groups(n, nw, heads, t)
+    _, g, _ = bwd_plan(n, nw, heads, t, bwd_resident_clusters(t, d, device))
     f32 = dict(dtype=torch.float32, device=device)
     return g, (torch.empty(heads * d, **f32), torch.empty((nw, heads, t, t), **f32),
                torch.empty(heads, **f32), torch.empty((g, nw, heads, t, t), **f32),
@@ -341,22 +399,26 @@ def _general_bwd(ptrs, dptrs, ld, qb, bm, scale, do, n, t, heads, d, nw):
 def kernel_info() -> dict:
     """Registers, local-memory (spill) bytes and dynamic shared-memory
     bytes of every instantiation of the two wgmma kernels, by padded window
-    NK = 64, 128, 256 and head width D, and of the general kernels' six
-    kernels, by operand type and padded head width DP (builds and loads
-    them)."""
+    NK = 64, 128, 256 and head width D (the backward's also its CTAs an SM
+    and clusters resident at once by the occupancy calculator, its stages of
+    prefetched rows, and whether its bias tile stays in shared memory), and
+    of the general kernels' six kernels, by operand type and padded head
+    width DP (builds and loads them)."""
     out = {}
-    for name, sigs, entry in (("window_attention", _SIGNATURES, "window_attention_fwd_info"),
-                              ("window_attention_bwd", _BWD_SIGNATURES,
-                               "window_attention_bwd_info")):
+    keys = ("registers", "spill_bytes", "smem_bytes", "ctas_per_sm", "stages", "bias_resident",
+            "clusters")
+    for name, sigs, entry, n in (("window_attention", _SIGNATURES, "window_attention_fwd_info",
+                                  3),
+                                 ("window_attention_bwd", _BWD_SIGNATURES,
+                                  "window_attention_bwd_info", 7)):
         fn = getattr(_build.load(name, sigs), entry)
         for nk in (64, 128, 256):
             for d in (16, 32, 64):
-                vals = (ctypes.c_int * 3)()
+                vals = (ctypes.c_int * n)()
                 err = fn(nk, d, ctypes.addressof(vals))
                 if err != 0:
                     raise RuntimeError(f"{name} info failed: {err}")
-                out[f"{name} NK={nk} D={d}"] = {"registers": vals[0], "spill_bytes": vals[1],
-                                                "smem_bytes": vals[2]}
+                out[f"{name} NK={nk} D={d}"] = dict(zip(keys, vals))
     fn = _build.load("window_attention_general", _GENERAL_SIGNATURES).window_attention_general_info
     for kernel, kname in enumerate(("fwd T<=64", "fwd T<=256", "fwd T>256", "bwd_dq",
                                     "bwd_dkdv", "bwd_dbm", "bwd_dkdv+dbm")):
@@ -566,7 +628,7 @@ window_attention.launches_general = 0
 window_attention_bwd.launches_general = 0
 fused_window_attention.launches_general = 0
 fused_window_attention_bwd.launches_general = 0
-_SMS = 132  # the H100's SMs: the backward's groups fill them
+_SMS = 132  # the H100's SMs: the general backward's groups fill them
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # qkv, qb, bm, scale, out, n_windows, T, heads, D, nW, stream
@@ -583,7 +645,8 @@ _BWD_SIGNATURES = {
     # q, k, v, bm, scale, do, dq, dk, dv, dqb (scratch), dbm, dscale,
     # part_bm, part_q, n_windows, T, heads, D, nW, groups, stream
     "fused_window_attention_bwd": (_P,) * 14 + (_I,) * 6 + (_P,),
-    # T, D, int[3] out: registers, spill bytes, dynamic shared-memory bytes
+    # T, D, int[7] out: registers, spill bytes, dynamic shared-memory bytes, CTAs an SM,
+    # stages, bias resident, clusters resident at once
     "window_attention_bwd_info": (_I, _I, _P),
 }
 _GENERAL_SIGNATURES = {

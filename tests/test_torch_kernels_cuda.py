@@ -46,17 +46,22 @@ def _rel(a, b):
     return float((a - b).norm() / b.norm())
 
 
+# T <= 32 runs the backward with P = 64 // T windows a 64-key tile (T = 4,
+# 9, 16, 25, 32: P = 16, 7, 4, 2, 2); three images leave a part-filled tile.
+# T = 144 at D = 32: three strips on two warpgroups.
 ATTN_GEOMS = [(16, 24, 32, False), (64, 12, 32, False), (256, 3, 32, True),
               (256, 3, 64, False), (16, 24, 64, False), (64, 12, 64, True),
               (256, 3, 16, True), (64, 12, 16, False), (16, 24, 16, True),
-              (49, 4, 32, False), (49, 4, 16, True), (144, 2, 64, True)]
+              (49, 4, 32, False), (49, 4, 16, True), (144, 2, 64, True),
+              (4, 6, 16, True), (9, 4, 32, False), (25, 3, 32, True), (32, 2, 64, False),
+              (144, 2, 32, False)]
 
 
-def _attention_inputs(t, h, d, shifted, seed):
+def _attention_inputs(t, h, d, shifted, seed, images=3):
     g = torch.Generator().manual_seed(seed)
     window = round(t ** 0.5)
     nw = 4 if shifted else 1
-    n = 3 * nw  # three images
+    n = images * nw
     c = h * d
     qkv = torch.randn(n, t, 3 * c, generator=g).to("cuda", torch.bfloat16)
     qb = (0.1 * torch.randn(c, generator=g)).cuda()
@@ -97,6 +102,59 @@ def test_window_attention_bwd_kernel_matches_plain(t, h, d, shifted):
     again = wa.window_attention_bwd(qkv, qb, bm, scale, h, do)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(out, again)), "not bit-identical"
+
+
+# Walks of many packed tiles: window counts a bias slot that P does not
+# divide (37 = 9 x 4 + 1, 45 = 22 x 2 + 1, 50 = 7 x 7 + 1), over several groups.
+PACKED_WALKS = [(16, 24, 32, True, 37), (16, 24, 64, False, 33), (32, 6, 32, False, 45),
+                (9, 4, 16, False, 50), (25, 3, 64, True, 7)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,h,d,shifted,images", PACKED_WALKS)
+def test_window_attention_bwd_packed_walks_match_plain(t, h, d, shifted, images):
+    """Both entries of the backward kernel on walks of many packed tiles,
+    the last part-filled: dqkv (dq, dk, dv) allclose, the summed outputs by
+    relative L2, and a second call bit-identical."""
+    _needs_card()
+    qkv, qb, bm, scale, do = _attention_inputs(t, h, d, shifted, 11, images)
+    pack, groups, _ = wa.bwd_plan(qkv.shape[0], bm.shape[0], h, t,
+                                  wa.bwd_resident_clusters(t, d))
+    assert pack == 64 // t and groups >= 1
+    out = wa.window_attention_bwd(qkv, qb, bm, scale, h, do)
+    ref = wa.window_attention_bwd_plain(qkv, qb, bm, scale, h, do)
+    _close(out[0], ref[0])
+    for a, b in zip(out[1:], ref[1:]):
+        assert _rel(a, b) <= SUM_TOL
+    again = wa.window_attention_bwd(qkv, qb, bm, scale, h, do)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out, again)), "not bit-identical"
+    q, k, v = _separate(qkv, h)
+    do = do.view(q.shape)
+    grads = wa.fused_window_attention_bwd(q, k, v, bm, scale, do)
+    ref = wa.attention_bwd_plain(q, k, v, bm, scale, do)
+    for a, r in zip(grads[:3], ref[:3]):
+        _close(a, r)
+    for a, r in zip(grads[3:], ref[3:]):
+        assert _rel(a, r) <= SUM_TOL
+    again = wa.fused_window_attention_bwd(q, k, v, bm, scale, do)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, r) for a, r in zip(grads, again)), "not bit-identical"
+
+
+@pytest.mark.cuda
+def test_window_attention_bwd_kernels_do_not_spill():
+    """Every instantiation of the backward kernel: no local memory, two
+    CTAs an SM at NK = 64, and the clusters resident at once that the plan
+    reads (``bwd_resident_clusters``) as the occupancy calculator gives."""
+    _needs_card()
+    info = {k: v for k, v in wa.kernel_info().items() if k.startswith("window_attention_bwd ")}
+    assert len(info) == 9
+    for name, v in info.items():
+        nk, d = (int(name.split(f"{k}=")[1].split()[0]) for k in ("NK", "D"))
+        assert v["spill_bytes"] == 0, name
+        assert v["ctas_per_sm"] >= (2 if nk == 64 else 1), name
+        assert v["clusters"] >= 1 and wa.bwd_resident_clusters(nk, d) == v["clusters"], name
 
 
 @pytest.mark.cuda
