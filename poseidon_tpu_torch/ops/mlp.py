@@ -28,14 +28,16 @@ raises: the Hopper kernels (``csrc/mlp.cu``, ``csrc/mlp_bwd.cu``,
 ``csrc/mlp_cln.cu``, ``csrc/mlp_cln_bwd.cu``) for bf16 with C in
 ``KERNEL_WIDTHS`` and F % 64 == 0, the general kernels
 (``csrc/mlp_general.cu`` for the MLP, ``csrc/mlp_cln_general.cu`` for the
-fused tail, both on ``csrc/mlp_general.cuh``: wgmma, fp32 operands as three
-tf32 products of a hi/lo split, erff GELU) for fp32 operands and any other
-C <= 1024 and F <= 4096 (:func:`mlp_kernel_for`).
+fused tail, both on ``csrc/mlp_general.cuh``, the tail at C <= 384 on its
+row-tile kernel ``csrc/mlp_cln_rows.cuh`` under :func:`tail_plan`: wgmma,
+fp32 operands as three tf32 products of a hi/lo split, erff GELU) for fp32
+operands and any other C <= 1024 and F <= 4096 (:func:`mlp_kernel_for`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -308,8 +310,11 @@ def kernel_info() -> dict:
     forward, rows and weight kernels, by the output width a warpgroup holds
     (``GENERAL_WIDTHS``; dynamic shared memory of the plan at C = that width,
     F = 4C, M = 32768; the rows kernel whose warpgroups split a step at 192
-    only), and of the general tail's own four (its forward kernel by output
-    width, its row kernels by C, its reduce). Builds and loads them."""
+    only), and of the general tail's own (its forward kernel by output
+    width, its row kernels by C, its reduce; the row-tile kernel by the
+    output columns NH a warpgroup holds, forward and backward with one row
+    tile a CTA and backward with two (NH <= 96), whose shared memory is its plan's, and
+    that path's prologue and reduce). Builds and loads them."""
     out = {}
     for name, sigs, entry in (("mlp", _SIGNATURES, "mlp_fwd_info"),
                               ("mlp_bwd", _BWD_SIGNATURES, "mlp_bwd_info"),
@@ -325,7 +330,10 @@ def kernel_info() -> dict:
                                     "smem_bytes": vals[2]}
     fn = _build.load("mlp_cln_general", _CLN_GENERAL_SIGNATURES).mlp_cln_general_info
     for kernel, kname, widths in ((0, "fwd", GENERAL_WIDTHS), (1, "fwd_rows", CLN_ROW_WIDTHS),
-                                  (2, "bwd_rows", CLN_ROW_WIDTHS), (3, "reduce", (0,))):
+                                  (2, "bwd_rows", CLN_ROW_WIDTHS), (3, "reduce", (0,)),
+                                  (4, "rows fwd", GENERAL_WIDTHS), (5, "rows bwd", GENERAL_WIDTHS),
+                                  (8, "rows2 bwd", GENERAL_WIDTHS[:4]),
+                                  (6, "tail_prep", (0,)), (7, "tail_reduce", (0,))):
         for fp32 in (0, 1):
             for nw in widths:
                 vals = (ctypes.c_int * 3)()
@@ -333,7 +341,9 @@ def kernel_info() -> dict:
                 if err != 0:
                     raise RuntimeError(f"mlp_cln_general info failed: {err}")
                 key = f"mlp_cln_general {kname} {'fp32' if fp32 else 'bf16'}"
-                out[key + (f" NW={nw}" if kernel == 0 else f" C={nw}" if nw else "")] = {
+                by_nh = kernel in (4, 5, 8)
+                out[key + (f" NW={nw}" if kernel == 0 else f" NH={nw}" if by_nh
+                           else f" C={nw}" if nw else "")] = {
                     "registers": vals[0], "spill_bytes": vals[1], "smem_bytes": vals[2]}
     fn = _build.load("mlp_general", _GENERAL_SIGNATURES).mlp_general_info
     names = ("fwd", "bwd_rows", "bwd_dw", "prep", "sum_splits", "bwd_reduce", "bwd_rows_split")
@@ -449,14 +459,7 @@ def _forward_cln(x, w1, b1, w2, b2, scale, shift, eps):
     out = torch.empty_like(x2)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if name == "mlp_cln_general":
-        lib = _build.load(name, _CLN_GENERAL_SIGNATURES)
-        fp32 = int(x.dtype == torch.float32)
-        scratch = _cln_general_scratch(lib, 0, m, c, f, x.shape[1], 0, fp32, x.device)
-        _build.launch(lib, "mlp_cln_general_fwd", x.device, x2.data_ptr(), w1.data_ptr(),
-            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-            out.data_ptr(), scratch.data_ptr(), m, c, f, x.shape[1], float(eps), fp32, stream)
-        mlp_cln.launches_general += 1
-        return out.reshape(x.shape)
+        return _cln_general_fwd(x, x2, w1, b1, w2, b2, scale, shift, eps, out, m, c, f, stream)
     lib = _build.load(name, _CLN_SIGNATURES)
     _build.launch(lib, "mlp_cln_fwd", x.device, x2.data_ptr(), w1.data_ptr(), b1.data_ptr(),
         w2.data_ptr(), b2.data_ptr(), scale.data_ptr(), shift.data_ptr(), out.data_ptr(), m, c, f,
@@ -465,12 +468,72 @@ def _forward_cln(x, w1, b1, w2, b2, scale, shift, eps):
     return out.reshape(x.shape)
 
 
-def _cln_general_scratch(lib, bwd, m, c, f, l, r, fp32, device):
-    """The general tail kernels' scratch for a call (the general MLP's, and
-    the partials of o, cast(do) and the tiles' column sums)."""
+def _cln_general_scratch(lib, bwd, m, c, f, l, r, fp32, plan, device):
+    """The general tail kernels' scratch for a call under ``plan`` (the
+    packed plan of :func:`tail_plan`): the weight copies or item images, and
+    the backward's intermediates and partial sums."""
     nbytes = ctypes.c_longlong(0)
-    err = lib.mlp_cln_general_scratch(bwd, m, c, f, l, r, fp32, ctypes.addressof(nbytes))
+    err = lib.mlp_cln_general_scratch(bwd, m, c, f, l, r, fp32, ctypes.addressof(plan),
+                                      ctypes.addressof(nbytes))
     return _scratch_buffer(lib, err, nbytes, device)
+
+
+def _pack_plan(part: dict):
+    """One direction of :func:`tail_plan` as the C entries take it: [path,
+    NH, KC, kp, x resident, u kept, NS, row tiles a CTA] (path 1: the
+    row-tile kernel)."""
+    if part["kernel"] != "tail_rows":
+        return (ctypes.c_int * 8)()
+    return (ctypes.c_int * 8)(1, part["nh"], part["kc"], part["kp"], part["xres"],
+                              part["ukeep"], part["ns"], part["rows"])
+
+
+def _aligned_rows(x2, part):
+    """x as the row-tile kernel reads it: where the plan streams x's chunks
+    by bulk copies, a 16-byte aligned copy of a misaligned x."""
+    if part["kernel"] == "tail_rows" and not part["xres"] and x2.data_ptr() % 16:
+        return x2.clone()
+    return x2
+
+
+def _cln_general_fwd(x, x2, w1, b1, w2, b2, scale, shift, eps, out, m, c, f, stream):
+    """The general tail forward's launch (``csrc/mlp_cln_general.cu``)."""
+    lib = _build.load("mlp_cln_general", _CLN_GENERAL_SIGNATURES)
+    fp32 = int(x.dtype == torch.float32)
+    part = tail_plan(m, c, f, x.dtype)["fwd"]
+    plan = _pack_plan(part)
+    x2 = _aligned_rows(x2, part)
+    scratch = _cln_general_scratch(lib, 0, m, c, f, x.shape[1], 0, fp32, plan, x.device)
+    _build.launch(lib, "mlp_cln_general_fwd", x.device, x2.data_ptr(), w1.data_ptr(),
+        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+        out.data_ptr(), scratch.data_ptr(), m, c, f, x.shape[1], float(eps), fp32,
+        ctypes.addressof(plan), stream)
+    mlp_cln.launches_general += 1
+    return out.reshape(x.shape)
+
+
+def _cln_general_bwd(x, x2, w1, b1, w2, b2, scale, eps, dy2, m, c, f, stream):
+    """The general tail backward's launch (``csrc/mlp_cln_general.cu``):
+    (dx, dw1, db1, dw2, db2, dscale, dshift)."""
+    b = x.shape[0]
+    r = general_bwd_splits(m, c, f)
+    fp32 = int(x.dtype == torch.float32)
+    part = tail_plan(m, c, f, x.dtype)["bwd"]
+    plan = _pack_plan(part)
+    x2 = _aligned_rows(x2, part)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x2)
+    # dw1 | dw2 | db1, and C floats that the general MLP's path writes, unused
+    grads = torch.empty(2 * f * c + f + (0 if part["kernel"] == "tail_rows" else c), **f32)
+    cout = torch.empty(c + 2 * b * c, **f32)       # db2 | dscale | dshift
+    lib = _build.load("mlp_cln_general", _CLN_GENERAL_SIGNATURES)
+    scratch = _cln_general_scratch(lib, 1, m, c, f, x.shape[1], r, fp32, plan, x.device)
+    _build.launch(lib, "mlp_cln_general_bwd", x.device, x2.data_ptr(), w1.data_ptr(),
+        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), scale.data_ptr(), dy2.data_ptr(),
+        dx.data_ptr(), grads.data_ptr(), cout.data_ptr(), scratch.data_ptr(), m, c, f,
+        x.shape[1], r, float(eps), fp32, ctypes.addressof(plan), stream)
+    mlp_cln_bwd.launches_general += 1
+    return _cln_grads(dx, grads, cout, x.shape, b, c, f)
 
 
 def mlp_cln_bwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
@@ -487,24 +550,12 @@ def mlp_cln_bwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.T
     name = _tail_library(kernel)
     _check_tail(x, scale)
     _check_dy(dy2, x2, kernel)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if name == "mlp_cln_general":
+        return _cln_general_bwd(x, x2, w1, b1, w2, b2, scale, eps, dy2, m, c, f, stream)
     b = x.shape[0]
     n_out = 2 * f * c + f + c
     f32 = dict(dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    if name == "mlp_cln_general":
-        r = general_bwd_splits(m, c, f)
-        fp32 = int(x.dtype == torch.float32)
-        dx = torch.empty_like(x2)
-        grads = torch.empty(n_out, **f32)     # dw1 | dw2 | db1 | sum of cast(do), unused
-        cout = torch.empty(c + 2 * b * c, **f32)  # db2 | dscale | dshift
-        lib = _build.load(name, _CLN_GENERAL_SIGNATURES)
-        scratch = _cln_general_scratch(lib, 1, m, c, f, x.shape[1], r, fp32, x.device)
-        _build.launch(lib, "mlp_cln_general_bwd", x.device, x2.data_ptr(), w1.data_ptr(),
-            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), scale.data_ptr(), dy2.data_ptr(),
-            dx.data_ptr(), grads.data_ptr(), cout.data_ptr(), scratch.data_ptr(), m, c, f,
-            x.shape[1], r, float(eps), fp32, stream)
-        mlp_cln_bwd.launches_general += 1
-        return _cln_grads(dx, grads, cout, x.shape, b, c, f)
     r = bwd_splits(m, c, f)
     dob = torch.empty_like(x2)            # bf16(do), the MLP backward's cotangent
     dx = torch.empty_like(x2)
@@ -523,9 +574,9 @@ def mlp_cln_bwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.T
 
 def _cln_grads(dx, grads, cout, x_shape, b, c, f):
     """(dx, dw1, db1, dw2, db2, dscale, dshift) from the tail backward's
-    outputs: grads = dw1 | dw2 | db1 | (unused), cout = db2 | dscale |
+    outputs: grads = dw1 | dw2 | db1 (| unused), cout = db2 | dscale |
     dshift."""
-    dw1, dw2, db1, _ = grads.split([f * c, c * f, f, c])
+    dw1, dw2, db1 = grads[:2 * f * c + f].split([f * c, c * f, f])
     db2, dscale, dshift = cout.split([c, b * c, b * c])
     return (dx.reshape(x_shape), dw1.view(f, c), db1, dw2.view(c, f), db2,
             dscale.view(b, c), dshift.view(b, c))
@@ -580,6 +631,147 @@ def use_fused_tail(c: int, tokens_per_image: int, f: Optional[int] = None) -> bo
     return use_mlp_kernel(c, tokens_per_image, f) and tokens_per_image % 64 == 0
 
 
+# The row-tile path of the general tail (csrc/mlp_cln_rows.cuh): its
+# kernel's dynamic shared memory at most, the SMs of the card it is planned
+# for, and the widest C it takes. A warpgroup holds one of GENERAL_WIDTHS
+# output columns.
+TAIL_SMEM = 232448
+H100_SMS = 132
+TAIL_MAX_C = 384
+
+
+def _align1k(n: int) -> int:
+    return (n + 1023) // 1024 * 1024
+
+
+def _step(nh: int, rows: int) -> int:
+    """Hidden columns a step of the row-tile kernel walks: a warpgroup's
+    ``cln_rows::FT`` = 32, both warpgroups' with one row tile a CTA."""
+    return 32 * (1 if rows == 2 else 2)
+
+
+def _rows_layout(c: int, f: int, fp32: bool, bwd: bool, nh: int, kc: int, kp: int, xres: int,
+                 ukeep: int, ns: int, rows: int) -> int:
+    """Dynamic shared-memory bytes of the row-tile kernel under one plan, as
+    ``cln_rows::make_layout`` lays it out: x (resident), cast(do)
+    (backward), two g / du tiles, u (kept), the row-sum exchange, NS ring
+    slots and the mbarriers; ``rows`` row tiles of 64 a CTA."""
+    eb, parts = (4, 2) if fp32 else (2, 1)
+    fs, cp, cpo = _step(nh, rows), -(-c // 16) * 16, nh * (1 if rows == 2 else 2)
+    fpad = -(-f // 64) * 64
+
+    def stride(k):  # words a raw row of k elements takes
+        return k * eb // 4 + 4
+
+    def tile(n, k):  # one swizzled image of n rows, hi and lo parts for fp32
+        return parts * _align1k(n * k * eb)
+
+    at = _align1k(64 * rows * stride(cp) * 4) if xres else 0
+    at += _align1k(64 * rows * stride(cp) * 4) if bwd else 0
+    at += 2 * _align1k(64 * stride(fs) * 4)
+    at += _align1k(64 * rows * fpad * 4) if ukeep else 0
+    at += 2048
+    item1 = tile(fs, kc) + (0 if xres else _align1k(64 * stride(kc) * 4))
+    slot = _align1k(max(item1, tile(cpo, kp)))
+    return at + ns * slot + 64
+
+
+def _rows_plan(c: int, f: int, fp32: bool, bwd: bool, rows: int):
+    """The row-tile kernel's plan for one direction with ``rows`` row tiles
+    a CTA, or None where none fits: x resident where it fits (else, with
+    one row tile, its chunks stream beside the W1 chunks, where C is whole
+    16-byte rows), then the widest items (W1 or W2^T chunks of KC columns
+    of C, W2 or W1^T pieces of kp hidden columns) that leave at least three
+    ring slots (two where three do not fit), at most four; for the
+    backward, u kept in shared memory where it fits beside the same items
+    and at least as many slots (three at most)."""
+    eb, ks = (4, 8) if fp32 else (2, 16)
+    nh = next((n for n in GENERAL_WIDTHS if n * (1 if rows == 2 else 2) >= c), None)
+    if nh is None or (rows == 2 and nh > 96):
+        return None
+    cp, fs = -(-c // 16) * 16, _step(nh, rows)
+    cpo = nh * (1 if rows == 2 else 2)
+    parts = 2 if fp32 else 1
+    kcs = [cp] + [k for k in range(cp - 16, 15, -16)]
+    kps = [k for k in (fs, fs // 2, fs // 4, fs // 8) if k >= ks]
+    streamable = rows == 1 and cp == c and (c * eb) % 16 == 0
+    for min_ns in (3, 2):
+        for xres in ((1, 0) if streamable else (1,)):
+            for cap in (49152, 32768, 24576, 16384, 12288, 8192):
+                kc = next((k for k in kcs if parts * _align1k(fs * k * eb)
+                           + (0 if xres else _align1k(64 * (k * eb // 4 + 4) * 4)) <= cap), None)
+                kp = next((k for k in kps if parts * _align1k(cpo * k * eb) <= cap), None)
+                if kc is None or kp is None or (not xres and (kc * eb) % 16):
+                    continue
+
+                def fit(ukeep, ns):
+                    return _rows_layout(c, f, fp32, bwd, nh, kc, kp, xres, ukeep, ns,
+                                        rows) <= TAIL_SMEM
+
+                ns = max([n for n in (2, 3, 4) if fit(0, n)], default=0)
+                if ns < min_ns:
+                    continue
+                ukeep = int(bwd and fit(1, min(ns, 3)))
+                if ukeep:
+                    ns = max(n for n in (2, 3, 4) if fit(1, n))
+                return {"kernel": "tail_rows", "rows": rows, "nh": nh, "kc": kc, "kp": kp,
+                        "xres": xres, "ukeep": ukeep, "ns": ns,
+                        "smem": _rows_layout(c, f, fp32, bwd, nh, kc, kp, xres, ukeep, ns, rows)}
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def tail_plan(m: int, c: int, f: int, dtype: torch.dtype) -> dict:
+    """The plan of the general tail kernels (``csrc/mlp_cln_general.cu``)
+    for M rows of width C and hidden width F in ``dtype``, the one the C
+    entries take (as :func:`_pack_plan` packs it), by direction:
+
+    - ``kernel``: ``"tail_rows"``, the row-tile kernel (``mlp_cln_rows.cuh``:
+      64 whole rows a CTA, two warpgroups splitting each step's hidden
+      columns and the output columns, u once a row, no fp32 partials of o),
+      at C <= 384, but for the forward where the general MLP's forward
+      kernel holds whole rows in one warpgroup and fills the card without
+      splitting F (C <= 192 and M / 128 >= the card's 132 SMs; the row-tile
+      forward, 64 rows a CTA, measured 2-32% slower there, PERF.md): there
+      ``"mlp_general"``, the general MLP's forward with the norm in its
+      epilogue, as at C > 384 (two or more column blocks: fp32 partials of o
+      and a row kernel; the backward there recomputes the forward and runs
+      the general MLP's backward), and as the backward at fp32 C in (272,
+      384) off a multiple of 16, where no row-tile layout fits.
+    - for ``"tail_rows"``: ``nh`` (output columns a warpgroup holds), ``kc``
+      and ``kp`` (the ring items' widths), ``xres`` (x resident in shared
+      memory, else streamed beside the W1 chunks), ``ukeep`` (backward: u
+      kept in shared memory from the first walk to the second, else
+      recomputed), ``ns`` (ring slots), ``smem`` (dynamic shared memory),
+      ``ctas`` (M / 64), ``u_products`` (times u = x W1^T is computed a row:
+      1, or 2 where the backward recomputes it), ``f_split`` (always 1).
+    - ``device_kernels``: launches of one call on the card: 2 for the
+      forward (prologue, kernel), 4 for the row-tile backward (prologue,
+      rows, weights, reduce); for ``"mlp_general"`` the forward's 2 (3 with
+      a row kernel at C > 192) and None for its backward (8, or 9 where the
+      MLP backward splits F: that plan is the C side's).
+    """
+    fp32 = dtype == torch.float32
+    out = {}
+    whole = m % 128 == 0 and m // 128 >= H100_SMS  # 128-row CTAs fill the card
+    for bwd in (False, True):
+        plan = None
+        if c <= TAIL_MAX_C:
+            plan = (_rows_plan(c, f, fp32, bwd, 2) if bwd and whole and c <= 96 else None) \
+                or _rows_plan(c, f, fp32, bwd, 1)
+        if plan is not None and not bwd and c <= 192 and m // 128 >= H100_SMS:
+            plan = None
+        if plan is None:
+            part = {"kernel": "mlp_general", "device_kernels": None if bwd else
+                    (3 if c > 192 or m // 128 < H100_SMS else 2)}
+        else:
+            part = dict(plan, ctas=m // (64 * plan["rows"]), f_split=1,
+                        u_products=2 if bwd and not plan["ukeep"] else 1,
+                        device_kernels=4 if bwd else 2)
+        out["bwd" if bwd else "fwd"] = part
+    return out
+
+
 mlp_cln.launches = 0
 mlp_cln_bwd.launches = 0
 mlp_cln.launches_general = 0
@@ -591,14 +783,17 @@ _CLN_SIGNATURES = {"mlp_cln_fwd": (_P,) * 8 + (_I,) * 4 + (_F, _P), "mlp_cln_fwd
 _CLN_BWD_SIGNATURES = {"mlp_cln_bwd": (_P,) * 13 + (_I,) * 5 + (_F, _P),
                        "mlp_cln_bwd_info": (_I, _P)}
 _CLN_GENERAL_SIGNATURES = {
-    # x, w1, b1, w2, b2, scale, shift, out, scratch, M, C, F, L, eps, fp32, stream
-    "mlp_cln_general_fwd": (_P,) * 9 + (_I,) * 4 + (_F, _I, _P),
-    # x, w1, b1, w2, b2, scale, dy, dx, grads, cout, scratch, M, C, F, L, R, eps, fp32, stream
-    "mlp_cln_general_bwd": (_P,) * 11 + (_I,) * 5 + (_F, _I, _P),
-    # bwd, M, C, F, L, R, fp32, long long out: scratch bytes
-    "mlp_cln_general_scratch": (_I,) * 7 + (_P,),
+    # x, w1, b1, w2, b2, scale, shift, out, scratch, M, C, F, L, eps, fp32, plan, stream
+    "mlp_cln_general_fwd": (_P,) * 9 + (_I,) * 4 + (_F, _I, _P, _P),
+    # x, w1, b1, w2, b2, scale, dy, dx, grads, cout, scratch, M, C, F, L, R, eps, fp32, plan,
+    # stream
+    "mlp_cln_general_bwd": (_P,) * 11 + (_I,) * 5 + (_F, _I, _P, _P),
+    # bwd, M, C, F, L, R, fp32, plan, long long out: scratch bytes
+    "mlp_cln_general_scratch": (_I,) * 7 + (_P, _P),
     # kernel, fp32, width, int[3] out: registers, spill bytes, shared-memory bytes
     "mlp_cln_general_info": (_I, _I, _I, _P),
+    # bwd, C, F, fp32, plan, long long out: the row-tile kernel's shared-memory bytes
+    "mlp_cln_general_layout": (_I, _I, _I, _I, _P, _P),
 }
 # Widths at which the general tail's row kernels are reported: one a class
 # of values a lane holds (C <= 128, 256, 512, 1024).

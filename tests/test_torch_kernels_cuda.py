@@ -17,6 +17,9 @@ it runs on a machine without them:
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda --noconftest -q
 """
 
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -517,18 +520,50 @@ def test_general_mlp_kernels_match_plain(m, c, f, dtype):
     assert all(torch.equal(a, b) for a, b in zip(grads, again)), "not bit-identical"
 
 
-# (B, L, C, F, dtype) of the general tail kernels (csrc/mlp_cln_general.cu):
-# ScOT-B's fp32 stages (C = 96: whole rows in one column block, the norm in
-# the forward kernel's registers; C = 192 at 256 tokens an image: F split
-# across CTAs, the norm in a row kernel), ScOT-L's C = 384 (two column
-# blocks), ScOT-T's mlp_ratio-3 widths in bf16, and odd widths: C not a
-# multiple of 8 or 32, F not a multiple of 64, C = 1024 with F = 4096, in
-# both dtypes, with one and several images of 64 rows.
+# (B, L, C, F, dtype) of the general tail kernels (csrc/mlp_cln_general.cu,
+# ops/mlp.py::tail_plan): ScOT-B's fp32 stages (C = 96 and 192: the
+# row-tile kernel, 64 whole rows a CTA, no F split), ScOT-L's C = 384 (192
+# output columns a warpgroup) in both dtypes (bf16 C = 384 is a Hopper-tail
+# shape, HOPPER_TAIL_CLN: its general call is made directly), ScOT-T's
+# mlp_ratio-3 widths in bf16, and odd widths: C not a multiple of 8 or 32,
+# C = 320 (the second warpgroup's 192 columns half padding) and C = 193, F
+# not a multiple of 64, one 64-row tile, C = 1024 with F = 4096 (the
+# general MLP's loops, partials of o and a row kernel), in both dtypes, with
+# one and several images of 64 rows.
 GENERAL_CLN = [(4, 1024, 96, 384, "fp32"), (8, 256, 192, 768, "fp32"),
                (4, 256, 384, 1536, "fp32"), (4, 1024, 48, 144, "bf16"),
                (4, 256, 96, 288, "bf16"), (3, 64, 17, 33, "fp32"), (3, 64, 17, 33, "bf16"),
                (2, 128, 200, 600, "bf16"), (2, 192, 64, 256, "bf16"),
-               (1, 128, 1024, 4096, "fp32"), (2, 64, 1024, 4096, "bf16")]
+               (1, 128, 1024, 4096, "fp32"), (2, 64, 1024, 4096, "bf16"),
+               (2, 256, 384, 1536, "bf16"), (1, 64, 384, 1536, "fp32"),
+               (2, 128, 320, 1280, "fp32"), (2, 128, 193, 772, "fp32")]
+
+
+# The GENERAL_CLN cases that the dispatch gives the Hopper tail kernels
+# (mlp_cln.cu, mlp_cln_bwd.cu): the general kernels are called through their
+# entries there.
+HOPPER_TAIL_CLN = {(2, 256, 384, 1536, "bf16")}
+
+
+def _general_tail_calls(case, x, w1, b1, w2, b2, scale, shift, dy):
+    """The general tail's forward and backward on these operands, after the
+    dispatch is checked: through ``mlp_cln`` / ``mlp_cln_bwd``, which must
+    take the general kernels, or, for a case of ``HOPPER_TAIL_CLN``, which
+    the dispatch must give the Hopper tail, through the general entries."""
+    m, c = x.shape[0] * x.shape[1], x.shape[2]
+    f = w1.shape[0]
+    library = mlp_op._tail_library(mlp_op.mlp_kernel_for(c, f, x.dtype))
+    if case not in HOPPER_TAIL_CLN:
+        assert library == "mlp_cln_general"
+        return (lambda: mlp_op.mlp_cln(x, w1, b1, w2, b2, scale, shift),
+                lambda: mlp_op.mlp_cln_bwd(x, w1, b1, w2, b2, scale, 1e-5, dy))
+    assert library == "mlp_cln"
+    stream = torch.cuda.current_stream().cuda_stream
+    x2, dy2 = x.reshape(m, c), dy.reshape(m, c)
+    return (lambda: mlp_op._cln_general_fwd(x, x2, w1, b1, w2, b2, scale, shift, 1e-5,
+                                            torch.empty_like(x2), m, c, f, stream),
+            lambda: mlp_op._cln_general_bwd(x, x2, w1, b1, w2, b2, scale, 1e-5, dy2, m, c, f,
+                                            stream))
 
 
 @pytest.mark.cuda
@@ -539,12 +574,12 @@ def test_general_cln_kernels_match_plain(b, l, c, f, dtype):
     dt = torch.float32 if dtype == "fp32" else torch.bfloat16
     x, w1, b1, w2, b2, scale, shift, dy = _cln_inputs(b, l, c, 14, f)
     x, w1, w2, dy = (a.to(dt) for a in (x, w1, w2, dy))
-    assert mlp_op._tail_library(mlp_op.mlp_kernel_for(c, f, dt)) == "mlp_cln_general"
+    fwd, bwd = _general_tail_calls((b, l, c, f, dtype), x, w1, b1, w2, b2, scale, shift, dy)
     before = (mlp_op.mlp_cln.launches_general, mlp_op.mlp_cln_bwd.launches_general)
-    out = mlp_op.mlp_cln(x, w1, b1, w2, b2, scale, shift)
+    out = fwd()
     _general_check(out, mlp_op.mlp_cln_plain(x, w1, b1, w2, b2, scale, shift, 1e-5), dtype)
     args = (x, w1, b1, w2, b2, scale, 1e-5, dy)
-    grads = mlp_op.mlp_cln_bwd(*args)
+    grads = bwd()
     assert (mlp_op.mlp_cln.launches_general, mlp_op.mlp_cln_bwd.launches_general) == \
         (before[0] + 1, before[1] + 1)
     ref = mlp_op.mlp_cln_bwd_plain(*args)
@@ -552,9 +587,71 @@ def test_general_cln_kernels_match_plain(b, l, c, f, dtype):
     for a, r in zip(grads[1:], ref[1:]):
         assert a.shape == r.shape and a.dtype == torch.float32
         _general_check(a, r, dtype, sums=True)
-    again = mlp_op.mlp_cln_bwd(*args)
+    again = bwd()
     torch.cuda.synchronize()
     assert all(torch.equal(a, r) for a, r in zip(grads, again)), "not bit-identical"
+
+
+def _device_kernels(fn, expect):
+    """Device kernels one call launches, as ``chip_smoke.py`` counts them
+    (``device_ms_expecting``: torch.profiler over 10 calls after a warm-up
+    cycle, again where it counts fewer than ``expect``)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    return sum(chip_smoke.device_ms_expecting(fn, expect)[2].values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,c,f,dtype", [s for s in GENERAL_CLN if s[2] <= 384])
+def test_general_cln_device_kernels_follow_tail_plan(b, l, c, f, dtype):
+    """One forward and one backward call launch the device kernels that
+    ``tail_plan`` gives (the backward: prologue, rows, weights, reduce)."""
+    _needs_card()
+    dt = torch.float32 if dtype == "fp32" else torch.bfloat16
+    x, w1, b1, w2, b2, scale, shift, dy = _cln_inputs(b, l, c, 15, f)
+    x, w1, w2, dy = (a.to(dt) for a in (x, w1, w2, dy))
+    plan = mlp_op.tail_plan(b * l, c, f, dt)
+    fwd, bwd = _general_tail_calls((b, l, c, f, dtype), x, w1, b1, w2, b2, scale, shift, dy)
+    assert plan["bwd"]["device_kernels"] == 4
+    assert _device_kernels(fwd, plan["fwd"]["device_kernels"]) == plan["fwd"]["device_kernels"]
+    assert _device_kernels(bwd, 4) == 4
+
+
+@pytest.mark.cuda
+def test_general_cln_row_tile_kernels_do_not_spill():
+    """Every instantiation of the row-tile kernel (forward and backward with
+    one row tile a CTA, backward with two), its prologue and its reduce: no
+    local memory; and the C side's layout of every plan that ``tail_plan``
+    gives at the ScOT blocks and at ``GENERAL_CLN`` takes the shared memory
+    the plan expects."""
+    import ctypes
+
+    _needs_card()
+    info = {k: v for k, v in mlp_op.kernel_info().items()
+            if k.startswith("mlp_cln_general rows") or k.startswith("mlp_cln_general tail_")}
+    assert len(info) == 2 * (6 + 6 + 4 + 2)
+    for name, v in info.items():
+        assert v["spill_bytes"] == 0, name
+    from poseidon_tpu_torch.ops import _build
+
+    lib = _build.load("mlp_cln_general", mlp_op._CLN_GENERAL_SIGNATURES)
+    shapes = [(b * l, c, f, torch.float32 if d == "fp32" else torch.bfloat16)
+              for b, l, c, f, d in GENERAL_CLN]
+    shapes += [(32 * 1024, 96, 384, torch.float32), (32 * 256, 192, 768, torch.float32),
+               (32 * 1024, 192, 768, torch.float32), (32 * 256, 384, 1536, torch.float32),
+               (32 * 1024, 48, 192, torch.float32), (32 * 256, 96, 384, torch.float32),
+               (32 * 1024, 48, 144, torch.bfloat16), (32 * 256, 96, 288, torch.bfloat16)]
+    for m, c, f, dt in shapes:
+        plan = mlp_op.tail_plan(m, c, f, dt)
+        for bwd, part in ((0, plan["fwd"]), (1, plan["bwd"])):
+            if part["kernel"] != "tail_rows":
+                continue
+            nbytes = ctypes.c_longlong(0)
+            packed = mlp_op._pack_plan(part)  # held: the call reads it through its address
+            err = lib.mlp_cln_general_layout(bwd, c, f, int(dt == torch.float32),
+                                             ctypes.addressof(packed), ctypes.addressof(nbytes))
+            assert err == 0 and nbytes.value == part["smem"], (m, c, f, dt, bwd)
 
 
 @pytest.mark.cuda
