@@ -39,6 +39,7 @@ import torch.utils.checkpoint as tuc
 
 from ..config import ScOTConfig
 from ..ops.mlp import fused_mlp, mlp_cln, use_fused_tail
+from ..tracing import span
 from ..utils.device import resolve_device
 from .attention import (
     WindowAttention,
@@ -162,18 +163,20 @@ class SwinBlock(nn.Module):
         win, shift, pad = self.window, self.shift, self.pad
 
         shortcut = x
-        hs = x.reshape(b, h, w, c)
-        if pad:
-            hs = nn.functional.pad(hs, (0, 0, 0, pad, 0, pad))
-        if shift:
-            hs = torch.roll(hs, (-shift, -shift), dims=(1, 2))
-        attn = self.attention(window_partition(hs, win), self.attn_mask, generator)
-        hs = window_reverse(attn, win, h + pad, w + pad)
-        if shift:
-            hs = torch.roll(hs, (shift, shift), dims=(1, 2))
-        if pad:
-            hs = hs[:, :h, :w]
-        hs = self.layernorm_before(hs.reshape(b, l, c), time)
+        with span("block.attention"):
+            hs = x.reshape(b, h, w, c)
+            if pad:
+                hs = nn.functional.pad(hs, (0, 0, 0, pad, 0, pad))
+            if shift:
+                hs = torch.roll(hs, (-shift, -shift), dims=(1, 2))
+            attn = self.attention(window_partition(hs, win), self.attn_mask, generator)
+            hs = window_reverse(attn, win, h + pad, w + pad)
+            if shift:
+                hs = torch.roll(hs, (shift, shift), dims=(1, 2))
+            if pad:
+                hs = hs[:, :h, :w]
+        with span("block.norm"):
+            hs = self.layernorm_before(hs.reshape(b, l, c), time)
         x = shortcut + self.drop_path(hs, generator)
 
         w1, b1 = self.intermediate.dense.weight, self.intermediate.dense.bias
@@ -183,21 +186,24 @@ class SwinBlock(nn.Module):
             # drop-path keep mask folds into the per-sample scale and shift
             # (the tail is linear in them), drawn as the unfused branch's
             # second DropPath draws it.
-            norm = self.layernorm_after
-            t = time.reshape(-1, 1).float()
-            scale = F.linear(t, norm.weight.weight, norm.weight.bias)
-            shift = F.linear(t, norm.bias.weight, norm.bias.bias)
-            factor = self.drop_path.keep_factor(b, generator)
-            if factor is not None:
-                factor = factor.to(x.device)[:, None]
-                scale, shift = scale * factor, shift * factor
-            return mlp_cln(x.to(dt), w1.to(dt), b1, w2.to(dt), b2, scale, shift, norm.eps)
-        if self.kernels_on():
-            mlp = fused_mlp(x.to(dt), w1.to(dt), b1, w2.to(dt), b2)
-        else:
-            mlp = dense(gelu_exact(dense(x.to(dt), w1, b1)), w2, b2)
-        mlp = dropout(mlp, cfg.hidden_dropout_prob, self.training, generator)
-        mlp = self.layernorm_after(mlp, time)
+            with span("block.mlp"):
+                norm = self.layernorm_after
+                t = time.reshape(-1, 1).float()
+                scale = F.linear(t, norm.weight.weight, norm.weight.bias)
+                shift = F.linear(t, norm.bias.weight, norm.bias.bias)
+                factor = self.drop_path.keep_factor(b, generator)
+                if factor is not None:
+                    factor = factor.to(x.device)[:, None]
+                    scale, shift = scale * factor, shift * factor
+                return mlp_cln(x.to(dt), w1.to(dt), b1, w2.to(dt), b2, scale, shift, norm.eps)
+        with span("block.mlp"):
+            if self.kernels_on():
+                mlp = fused_mlp(x.to(dt), w1.to(dt), b1, w2.to(dt), b2)
+            else:
+                mlp = dense(gelu_exact(dense(x.to(dt), w1, b1)), w2, b2)
+            mlp = dropout(mlp, cfg.hidden_dropout_prob, self.training, generator)
+        with span("block.norm"):
+            mlp = self.layernorm_after(mlp, time)
         return x + self.drop_path(mlp, generator)
 
 

@@ -26,6 +26,7 @@ from typing import Any, Callable, Optional, Sequence, Tuple, Union
 import torch
 
 from ..models.scot import forward_with_intermediates
+from ..tracing import span
 from ..utils.device import resolve_device
 
 StepFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]  # (x, time) -> prediction
@@ -47,19 +48,20 @@ def autoregressive_rollout(step_fn: StepFn, pixel_values, time,
     absent and the caller did not ask for the CPU). ``pixel_values`` and
     ``time`` (tensors or arrays) are moved there. Returns the final
     prediction (B, C_out, H, W), or all of them (B, n, C_out, H, W)."""
-    dev = resolve_device(device)
-    x = torch.as_tensor(pixel_values, dtype=torch.float32, device=dev)
-    t = torch.as_tensor(time, dtype=torch.float32, device=dev)
-    static = x[:, num_out_channels:] if x.shape[1] > num_out_channels else None
-    preds = []
-    for step_time in _step_times(t, ar_steps):
-        pred = step_fn(x, step_time)
-        preds.append(pred)
-        fed = pred.detach()
-        x = torch.cat([fed, static], dim=1) if static is not None else fed
-    if output_all_steps:
-        return torch.stack(preds, dim=1)
-    return preds[-1][:, :num_out_channels]
+    with span("rollout"):
+        dev = resolve_device(device)
+        x = torch.as_tensor(pixel_values, dtype=torch.float32, device=dev)
+        t = torch.as_tensor(time, dtype=torch.float32, device=dev)
+        static = x[:, num_out_channels:] if x.shape[1] > num_out_channels else None
+        preds = []
+        for step_time in _step_times(t, ar_steps):
+            pred = step_fn(x, step_time)
+            preds.append(pred)
+            fed = pred.detach()
+            x = torch.cat([fed, static], dim=1) if static is not None else fed
+        if output_all_steps:
+            return torch.stack(preds, dim=1)
+        return preds[-1][:, :num_out_channels]
 
 
 def _next_input(pred: torch.Tensor, static: Optional[torch.Tensor]) -> torch.Tensor:

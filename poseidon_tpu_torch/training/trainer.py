@@ -62,6 +62,7 @@ from ..models.layers import BatchNorm
 from ..models.scot import ScOT, SwinBlock, apply_pixel_mask, forward_with_loss, scot_loss
 from ..parallel.host import is_primary, process_count, sync_hosts
 from ..parallel.mesh import gather_rows, make_mesh
+from ..tracing import span
 from ..utils.device import resolve_device
 from .arguments import TrainingArguments
 from .optimizer import build_optimizer, clip_by_global_norm, global_norm
@@ -106,23 +107,27 @@ def train_step(model: ScOT, optimizer: torch.optim.Optimizer,
     group's size, so that the mean DDP and FSDP take over the processes is
     the sum of the shares' gradients: the gradient of the global batch's
     loss. The loss returned is the sum of the shares, the global loss."""
-    model.train()
-    n = _data_size(group)
-    loss = (_direct_loss(model, batch, generator, group) if loss_fn is None
-            else loss_fn(model, batch))
-    (loss * n if n > 1 else loss).backward()
-    params = [p for p in model.parameters() if p.requires_grad]
-    if max_grad_norm is not None and max_grad_norm > 0:
-        gnorm = clip_by_global_norm(params, max_grad_norm)
-    else:
-        gnorm = global_norm(params)
-    optimizer.step()
-    scheduler.step()
-    optimizer.zero_grad(set_to_none=True)
-    loss = loss.detach()
-    if n > 1:
-        dist.all_reduce(loss, group=group)
-    return {"loss": loss, "grad_norm": gnorm}
+    with span("train_step"):
+        model.train()
+        n = _data_size(group)
+        with span("forward"):
+            loss = (_direct_loss(model, batch, generator, group) if loss_fn is None
+                    else loss_fn(model, batch))
+        with span("backward"):
+            (loss * n if n > 1 else loss).backward()
+        with span("optimizer"):
+            params = [p for p in model.parameters() if p.requires_grad]
+            if max_grad_norm is not None and max_grad_norm > 0:
+                gnorm = clip_by_global_norm(params, max_grad_norm)
+            else:
+                gnorm = global_norm(params)
+            optimizer.step()
+            scheduler.step()
+            optimizer.zero_grad(set_to_none=True)
+        loss = loss.detach()
+        if n > 1:
+            dist.all_reduce(loss, group=group)
+        return {"loss": loss, "grad_norm": gnorm}
 
 
 @dataclasses.dataclass
