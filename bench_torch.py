@@ -29,7 +29,9 @@ Environment knobs, those of bench.py:
   BENCH_MODEL       T/S/B/L (B, the metric of record)
   BENCH_SCAN        K > 0: the step is a CUDA graph of one ``train_step``,
                     replayed K times per timed call (bench.py's scan mode:
-                    no host work per step); 0: eager steps
+                    no host work per step); 0: eager steps (``eager_step``;
+                    ``train_step``'s own graph, which the benchmark under
+                    ``benchmark/`` measures, stays off here)
   BENCH_L_BATCH     batch of the ScOT-L entry (64)
   BENCH_SKIP_L      skip the ScOT-L entry
   BENCH_SKIP_TRACE  skip the profiled device span
@@ -105,8 +107,12 @@ def build(cfg: pt.ScOTConfig, device, seed: int = 0):
 
 
 def eager_step(model, optimizer, scheduler, batch) -> Dict[str, torch.Tensor]:
-    """One train step, clipped at bench.py's 5.0."""
-    return pt.train_step(model, optimizer, scheduler, batch, max_grad_norm=MAX_GRAD_NORM)
+    """One eager train step, clipped at bench.py's 5.0. It passes a
+    generator of its own, unused at the bench's zero dropout and drop-path,
+    which keeps ``train_step`` from capturing the step into its own CUDA
+    graph."""
+    return pt.train_step(model, optimizer, scheduler, batch, max_grad_norm=MAX_GRAD_NORM,
+                         generator=torch.Generator(batch["pixel_values"].device))
 
 
 class _DeviceLR:
@@ -151,7 +157,9 @@ class GraphStep:
     at the capture, not at a replay). A capture that fails raises; nothing
     falls back to eager steps. With ``capture=False`` no graph is made, and
     each call takes the same step (capturable optimizer, device LR)
-    eagerly: the graph's reference."""
+    eagerly: the graph's reference. The eager steps are :func:`eager_step`'s
+    and the captured one runs inside this capture, so ``train_step``'s own
+    graph engages in neither."""
 
     def __init__(self, model, optimizer, scheduler, batch, warmup: int = 2,
                  capture: bool = True):
@@ -178,7 +186,7 @@ class GraphStep:
 
     def _eager(self) -> Dict[str, torch.Tensor]:
         self._lr.set()
-        return pt.train_step(*self._args, max_grad_norm=MAX_GRAD_NORM)
+        return eager_step(*self._args)
 
     def __call__(self) -> Dict[str, torch.Tensor]:
         if self.graph is None:

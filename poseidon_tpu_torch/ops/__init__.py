@@ -1,6 +1,7 @@
 """The hand-written kernels' ops (``window_attention``, ``mlp``) and their
 launch counters: each wrapper adds one to its counter where it launches
-its kernel, and nowhere else."""
+its kernel, and nowhere else but a CUDA graph's replay, which adds the
+launches its capture counted (:func:`add_launch_counts`)."""
 
 from . import mlp as _mlp
 from . import window_attention as _wa
@@ -38,4 +39,14 @@ def launch_counts() -> dict:
     return {name: getattr(wrapper, field) for name, wrapper, field in COUNTERS}
 
 
-__all__ = ["fused_window_attention", "COUNTERS", "reset_launch_counts", "launch_counts"]
+def add_launch_counts(counts: dict) -> None:
+    """Add ``counts`` (by kernel name, as :func:`launch_counts`) to the
+    counters: the launches of a replayed CUDA graph, whose wrappers ran
+    only at the capture."""
+    for name, wrapper, field in COUNTERS:
+        if counts.get(name):
+            setattr(wrapper, field, getattr(wrapper, field) + counts[name])
+
+
+__all__ = ["fused_window_attention", "COUNTERS", "reset_launch_counts", "launch_counts",
+           "add_launch_counts"]

@@ -19,16 +19,30 @@ check of the profiler's state. The spans, opened in forward code only:
 
 The backward runs under ``scot.backward`` and opens no span: a reader of the
 trace charges a backward op to the block part of the forward op with its
-autograd sequence number.
+autograd sequence number. A step that replays ``train_step``'s CUDA graph
+(``training/step_graph.py``) runs its work on the device alone: its
+``scot.train_step`` holds one ``scot.train_step.replay`` and none of the
+phases or block parts.
+
+:func:`graph_counts` says how ``train_step`` ran in this process: the
+graph's captures and replays, and the eager steps by reason.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+from typing import Dict
 
 import torch
 
 _OFF = contextlib.nullcontext()
+
+# Why a train step ran eagerly, in the order ``step_graph.eager_reason``
+# tests them; ``first`` is the eager step that starts a new step key.
+EAGER_REASONS = ("cpu", "group", "loss_fn", "generator", "masks", "capturing", "optimizer",
+                 "grads", "first")
+_STEPS: collections.Counter = collections.Counter()
 
 
 def span(name: str):
@@ -36,3 +50,17 @@ def span(name: str):
     if torch._C._autograd._profiler_enabled():
         return torch.profiler.record_function("scot." + name)
     return _OFF
+
+
+def count_step(kind: str) -> None:
+    """Add one to the train steps of ``kind``: ``captures``, ``replays`` or
+    ``eager.<reason>`` (a reason of :data:`EAGER_REASONS`)."""
+    _STEPS[kind] += 1
+
+
+def graph_counts() -> Dict[str, object]:
+    """The train steps since the process started: ``captures`` (a capture's
+    call also replays once), ``replays``, and ``eager`` by reason (every
+    reason of :data:`EAGER_REASONS`, 0 where none)."""
+    return {"captures": _STEPS["captures"], "replays": _STEPS["replays"],
+            "eager": {r: _STEPS["eager." + r] for r in EAGER_REASONS}}

@@ -62,11 +62,12 @@ from ..models.layers import BatchNorm
 from ..models.scot import ScOT, SwinBlock, apply_pixel_mask, forward_with_loss, scot_loss
 from ..parallel.host import is_primary, process_count, sync_hosts
 from ..parallel.mesh import gather_rows, make_mesh
-from ..tracing import span
+from ..tracing import count_step, span
 from ..utils.device import resolve_device
 from .arguments import TrainingArguments
 from .optimizer import build_optimizer, clip_by_global_norm, global_norm
 from .rollout import autoregressive_rollout_stateful
+from .step_graph import eager_reason, graphed_step
 
 LossFn = Callable[[ScOT, Mapping[str, torch.Tensor]], torch.Tensor]
 
@@ -97,8 +98,19 @@ def train_step(model: ScOT, optimizer: torch.optim.Optimizer,
     norm of the gradients -> clip by it (when ``max_grad_norm`` is set and
     positive) -> ``optimizer.step()`` -> ``scheduler.step()`` -> gradients
     set to None. Returns the loss and the norm before clipping, as device
-    tensors (reading them synchronises): what ``Trainer._train_step``
-    returns in the JAX package.
+    tensors (reading them synchronises), new ones at every call: what
+    ``Trainer._train_step`` returns in the JAX package.
+
+    On CUDA, a call with no ``group``, ``loss_fn`` or ``generator``, on a
+    model without dropout or drop-path, outside any capture, runs the step
+    as one CUDA graph (``step_graph.py``): the first call with a new batch
+    shape, model or optimizer state makes the optimizer capturable (AdamW's
+    step counters and each group's LR on the device) and steps eagerly, the
+    second captures the step and replays it, and later calls replay it,
+    each waiting until the replay two calls back has ended. Such steps
+    compute capturable AdamW's update, which rounds otherwise than the
+    default one. Every other call steps eagerly; ``tracing.graph_counts()``
+    counts both.
 
     ``group``: the data axis's process group, when ``batch`` is this
     process's rows of a global batch split over it (``model`` wrapped in
@@ -107,9 +119,10 @@ def train_step(model: ScOT, optimizer: torch.optim.Optimizer,
     group's size, so that the mean DDP and FSDP take over the processes is
     the sum of the shares' gradients: the gradient of the global batch's
     loss. The loss returned is the sum of the shares, the global loss."""
-    with span("train_step"):
-        model.train()
-        n = _data_size(group)
+    n = _data_size(group)
+
+    def step(batch, scheduler):
+        # The step's work; ``scheduler`` None leaves its step to the caller.
         with span("forward"):
             loss = (_direct_loss(model, batch, generator, group) if loss_fn is None
                     else loss_fn(model, batch))
@@ -122,12 +135,22 @@ def train_step(model: ScOT, optimizer: torch.optim.Optimizer,
             else:
                 gnorm = global_norm(params)
             optimizer.step()
-            scheduler.step()
+            if scheduler is not None:
+                scheduler.step()
             optimizer.zero_grad(set_to_none=True)
         loss = loss.detach()
         if n > 1:
             dist.all_reduce(loss, group=group)
         return {"loss": loss, "grad_norm": gnorm}
+
+    with span("train_step"):
+        model.train()
+        reason = eager_reason(model, optimizer, batch, group=group, loss_fn=loss_fn,
+                              generator=generator)
+        if reason is None:
+            return graphed_step(model, optimizer, scheduler, batch, max_grad_norm, step)
+        count_step("eager." + reason)
+        return step(batch, scheduler)
 
 
 @dataclasses.dataclass
