@@ -17,8 +17,11 @@ each the worst over the steps:
   thousandth of the median leaf's (the others move by round-off alone);
   ``change_median_gap`` the median leaf's.
 
-A cell's limits file names the numbers it compares; ``PERF.md`` gives the
-readings each limit was set from and why the others are not compared.
+Under data parallelism every rank's readings are compared with the
+reference's steps on the global batch, and each number is the worst
+rank's. A cell's limits file names the numbers it compares; ``PERF.md``
+gives the readings each limit was set from and why the others are not
+compared.
 
 Rollout: ``state_gap``, every predicted state of a sample of the requests
 the window finished, relative L2 of each trajectory's state at each step,
@@ -69,6 +72,11 @@ def train_numbers(prog: dict, ref: dict) -> Dict[str, float]:
             "grad_norm_gap": max(norms), "first_grad_gap": max(first),
             "first_grad_median_gap": statistics.median(first),
             "change_gap": max(change), "change_median_gap": statistics.median(change)}
+
+
+def worst(numbers: List[Dict[str, float]]) -> Dict[str, float]:
+    """Each number's worst over the ranks' (``train_numbers`` of each)."""
+    return {k: max(n[k] for n in numbers) for k in numbers[0]}
 
 
 def worst_names(prog: dict, ref: dict) -> Dict[str, list]:

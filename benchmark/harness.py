@@ -11,11 +11,19 @@ ends on a synchronize. A traced run keeps the host time of each call in
 the window, then profiles a few more calls. Once the window has closed and
 the memory peak is read, the program's state is freed and the reference
 judges what the program produced.
+
+Across ranks (``ranks.Ranks``) every rank does all of that in lockstep on
+its own card: the ranks agree the window's number of steps (the slowest
+rank's last warm-up step into ``seconds``), open it on a barrier, and close
+it on a synchronize and a barrier; each profiles its own calls. Then each
+frees its state and sends its readings, memory peak and busy time to rank
+0, which alone runs the reference and gets the result.
 """
 
 from __future__ import annotations
 
 import gc
+import math
 import random
 import sys
 import time
@@ -73,7 +81,7 @@ class _Loop:
         return inputs.make_pool(self.model_cfg, self.traffic, seed, self.device)
 
     def free(self) -> None:
-        for name in ("model", "optimizer", "scheduler", "inputs"):
+        for name in ("model", "net", "trainer", "optimizer", "scheduler", "inputs"):
             if hasattr(self, name):
                 delattr(self, name)
 
@@ -92,6 +100,7 @@ class TrainLoop(_Loop):
 
     def load(self, seed: int) -> None:
         self.load_weights(seed)
+        self.net, self.group = self.wrap()
         o = self.traffic["optimizer"]
         self.optimizer, self.scheduler = self.pt.build_optimizer(
             self.model, learning_rate=o["learning_rate"], total_steps=o["total_steps"],
@@ -106,18 +115,25 @@ class TrainLoop(_Loop):
         batch = self.inputs[i % len(self.inputs)]
         if self.fault == "half_batch":
             batch = {k: v[: v.shape[0] // 2] for k, v in batch.items()}
-        return self.pt.train_step(self.model, self.optimizer, self.scheduler, batch,
-                                  max_grad_norm=self.traffic["max_grad_norm"])
+        return self.pt.train_step(self.net, self.optimizer, self.scheduler, batch,
+                                  max_grad_norm=self.traffic["max_grad_norm"], group=self.group)
+
+    def wrap(self):
+        """(what the steps call, the data group): the model itself, none."""
+        return self.model, None
 
     def warm(self, seed: int) -> dict:
         """The first steps, which the check compares: each step's loss and
         gradient norm, the first gradient by leaf as AdamW holds it, and
-        each leaf's change after the last of them."""
+        each leaf's change after the last of them. ``step_s``: the last
+        step's seconds to its loss on the host."""
         losses, norms, first = [], [], {}
         beta1 = self.traffic["optimizer"]["betas"][0]
         for i in range(self.traffic["check_steps"]):
+            t = time.perf_counter()
             out = self.call(i)
             losses.append(float(out["loss"]))
+            self.step_s = time.perf_counter() - t
             norms.append(float(out["grad_norm"]))
             if i == 0:
                 state = self.optimizer.state
@@ -141,6 +157,48 @@ class TrainLoop(_Loop):
     def reference(self, seed: int, readings: dict) -> dict:
         ref = reference_train_readings(self.cell, seed, self.device)
         return check.train_numbers(readings, ref)
+
+
+def _no_exchange(state, bucket):
+    """A DDP communication hook that exchanges nothing: each rank steps on
+    its own gradient (the fault ``no_exchange``)."""
+    done = torch.futures.Future()
+    done.set_result(bucket.buffer())
+    return done
+
+
+class TrainDDPLoop(TrainLoop):
+    """``TrainLoop`` on each rank of the process group, as the port's
+    ``Trainer`` runs it under data parallelism: the model wrapped by the
+    Trainer itself (``DistributedDataParallel`` over the data group,
+    ``broadcast_buffers=False``, ``static_graph=True``, BatchNorm over the
+    group), each step ``train_step(..., group=)`` on this rank's shard of
+    a global batch of ``batch`` rows a rank."""
+
+    def __init__(self, cell, device, fault=None):
+        import torch.distributed as dist
+
+        super().__init__(cell, device, fault)
+        self.rank, self.world = dist.get_rank(), dist.get_world_size()
+        self.items_per_call = self.batch * self.world
+
+    def wrap(self):
+        n = self.batch * self.world
+        self.trainer = self.pt.Trainer(
+            self.model, self.pt.TrainingArguments(train_batch_size=n, eval_batch_size=n),
+            device=self.device, mesh=self.pt.parallel.make_mesh(device_type=self.device.type))
+        if self.fault == "no_exchange":
+            self.trainer.net.register_comm_hook(None, _no_exchange)
+        return self.trainer.net, self.trainer.data_group
+
+    def pool(self, seed: int) -> list:
+        return inputs.make_pool(self.model_cfg, self.traffic, seed, self.device, self.rank)
+
+    def reference(self, seed: int, readings: List[dict]) -> dict:
+        """Every rank's readings against the reference's steps on the
+        global batches; each number the worst rank's."""
+        ref = reference_train_readings(self.cell, seed, self.device)
+        return check.worst([check.train_numbers(r, ref) for r in readings])
 
 
 class RolloutLoop(_Loop):
@@ -218,7 +276,7 @@ class RolloutLoop(_Loop):
         return reference_rollout_numbers(self.cell, seed, self.sample, self.device)
 
 
-LOOPS = {"train": TrainLoop, "rollout": RolloutLoop}
+LOOPS = {"train": TrainLoop, "rollout": RolloutLoop, "train_ddp": TrainDDPLoop}
 
 
 def _reference(cell, precision: str) -> Reference:
@@ -228,12 +286,13 @@ def _reference(cell, precision: str) -> Reference:
 
 
 def reference_train_readings(cell, seed: int, device, precision: str = "fp32") -> dict:
-    """The reference's first steps on the batches of the pool."""
+    """The reference's first steps on the global batches of the pool (on
+    the cell's ``chips`` ranks)."""
     model, traffic = cell.config["model"], cell.traffic
     ref = _reference(cell, precision)
     w0 = inputs.make_weights(model, seed, device, cell.config["init_std"])
     params = {k: v.clone() for k, v in w0.items()}
-    batches = [inputs.make_batch(model, traffic, seed, i, device)
+    batches = [inputs.global_batch(model, traffic, seed, i, device, cell.chips)
                for i in range(traffic["check_steps"])]
     out = ref_train.train_steps(ref, params, batches, traffic["optimizer"],
                                 traffic["max_grad_norm"], traffic["reference_rows"])
@@ -276,10 +335,11 @@ def train_control(cell, seed: int, device, precision: str = "fp8") -> dict:
     return check.train_numbers(low, ref)
 
 
-def window(loop, seconds: float, spans: bool):
-    """Calls in a closed loop until ``seconds`` have passed; returns
-    (seconds, calls, host seconds of each call or None, the calls' kept
-    values)."""
+def window(loop, seconds: float, spans: bool, steps: Optional[int] = None, ranks=None):
+    """Calls in a closed loop until ``seconds`` have passed, or ``steps``
+    calls where the ranks agreed a number; ends on a synchronize, and a
+    barrier across ``ranks``. Returns (seconds, calls, host seconds of each
+    call or None, the calls' kept values)."""
     host: List[float] = []
     kept = []
     calls = 0
@@ -292,10 +352,12 @@ def window(loop, seconds: float, spans: bool):
         host.append(b - a)
         kept.append(loop.keep(i, out))
         calls += 1
-        if b - t0 >= seconds:
+        if (b - t0 >= seconds) if steps is None else calls == steps:
             break
     if loop.device.type == "cuda":
         torch.cuda.synchronize(loop.device)
+    if ranks is not None:
+        ranks.barrier()
     return time.perf_counter() - t0, calls, (host if spans else None), kept
 
 
@@ -304,8 +366,9 @@ def _note(what: str, t0: float) -> None:
 
 
 def run(cell, seed: int, seconds: float, trace: bool, t0: float, device=None,
-        fault: Optional[str] = None) -> dict:
-    """One run of ``cell``: what the result line is made of."""
+        fault: Optional[str] = None, ranks=None) -> Optional[dict]:
+    """One run of ``cell``: what the result line is made of; across
+    ``ranks``, on rank 0, and None on the others."""
     device = torch.device(device if device is not None else "cuda:0")
     if device.type == "cuda":
         torch.cuda.set_device(device)
@@ -316,9 +379,15 @@ def run(cell, seed: int, seconds: float, trace: bool, t0: float, device=None,
     readings = loop.warm(seed)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+    steps = None
+    if ranks is not None:
+        step_s = ranks.max(loop.step_s)
+        steps = max(1, math.ceil(seconds / step_s))
+        _note(f"{steps} steps agreed (slowest warm-up step {step_s:.4f} s)", t0)
+        ranks.barrier()
     setup_s = time.perf_counter() - t0
     _note("warm-up done", t0)
-    win_s, calls, host, kept = window(loop, seconds, trace)
+    win_s, calls, host, kept = window(loop, seconds, trace, steps, ranks)
     failed = loop.finish(kept)
     del kept
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
@@ -335,6 +404,15 @@ def run(cell, seed: int, seconds: float, trace: bool, t0: float, device=None,
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
+    busy = [prof["busy_s"]] if prof else []
+    if ranks is not None:
+        every = ranks.gather({"readings": readings, "peak": peak,
+                              "busy_s": prof["busy_s"] if prof else None})
+        if every is None:
+            return None
+        readings = [e["readings"] for e in every]
+        peak = max(e["peak"] for e in every)
+        busy = [e["busy_s"] for e in every if e["busy_s"] is not None]
     t_ref = time.perf_counter()
     numbers = loop.reference(seed, readings)
     _note(f"reference judged in {time.perf_counter() - t_ref:.3f} s", t0)
@@ -345,7 +423,7 @@ def run(cell, seed: int, seconds: float, trace: bool, t0: float, device=None,
                       "host_call_s": host},
            "flops_per_call": loop.flops_per_call, "profile": prof}
     return {"ctx": ctx, "numbers": numbers, "attempted": calls, "failed": failed,
-            "launches": launches}
+            "launches": launches, "busy_s": sum(busy) / len(busy) if busy else None}
 
 
 def breakdown(prof: dict) -> dict:

@@ -10,13 +10,15 @@ reference.
 
 Inputs: a pool of batches, each drawn on the device from its own
 generator, inputs and labels N(0, 1), one lead time for every row, and the
-traffic's masked output channels. A run cycles through the pool.
+traffic's masked output channels. A run cycles through the pool. Under
+data parallelism each rank draws its own shard of every global batch from
+a generator of its own; the global batch is the shards in rank order.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 
@@ -49,16 +51,18 @@ def make_weights(model: dict, seed: int, device, init_std: float) -> Dict[str, t
     return out
 
 
-def make_batch(model: dict, traffic: dict, seed: int, index: int,
-               device) -> Dict[str, torch.Tensor]:
-    """Batch ``index`` of the pool: ``traffic["batch"]`` rows."""
+def make_batch(model: dict, traffic: dict, seed: int, index: int, device,
+               rank: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """Batch ``index`` of the pool: ``traffic["batch"]`` rows; with
+    ``rank``, that rank's shard of global batch ``index``."""
     n = traffic["batch"]
     size, cin, cout = model["image_size"], model["num_channels"], model["num_out_channels"]
-    gen = torch.Generator(device).manual_seed(subseed(seed, 2, index))
+    keys = (2, index) if rank is None else (2, index, rank)
+    gen = torch.Generator(device).manual_seed(subseed(seed, *keys))
     x = torch.randn((n, cin, size, size), generator=gen, device=device)
     batch = {"pixel_values": x, "time": torch.full((n,), float(traffic["lead_time"]),
                                                     device=device)}
-    if traffic["loop"] == "train":
+    if traffic["loop"] != "rollout":
         batch["labels"] = torch.randn((n, cout, size, size), generator=gen, device=device)
         mask = torch.zeros((n, cout), dtype=torch.bool, device=device)
         mask[:, traffic.get("masked_channels", [])] = True
@@ -66,5 +70,16 @@ def make_batch(model: dict, traffic: dict, seed: int, index: int,
     return batch
 
 
-def make_pool(model: dict, traffic: dict, seed: int, device) -> List[Dict[str, torch.Tensor]]:
-    return [make_batch(model, traffic, seed, i, device) for i in range(traffic["pool"])]
+def global_batch(model: dict, traffic: dict, seed: int, index: int, device,
+                 world: int) -> Dict[str, torch.Tensor]:
+    """Global batch ``index``: batch ``index`` itself on one rank, else the
+    ``world`` ranks' shards in rank order."""
+    if world == 1:
+        return make_batch(model, traffic, seed, index, device)
+    shards = [make_batch(model, traffic, seed, index, device, r) for r in range(world)]
+    return {k: torch.cat([s[k] for s in shards]) for k in shards[0]}
+
+
+def make_pool(model: dict, traffic: dict, seed: int, device,
+              rank: Optional[int] = None) -> List[Dict[str, torch.Tensor]]:
+    return [make_batch(model, traffic, seed, i, device, rank) for i in range(traffic["pool"])]

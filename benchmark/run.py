@@ -9,6 +9,12 @@ with ``--trace 1`` its per-layer ones), ``device``, with ``--trace 1`` a
 compared, with its limit (also the last lines of standard error). Exits
 non-zero, printing no result, without as many CUDA cards as the cell asks
 for, or when JAX or the JAX package was loaded.
+
+A cell on several cards runs one process a card (``ranks.py``): this
+process starts them with its own arguments and ``--rank``, ``--port``,
+``--started`` and ``--cores``, waits for them, and prints what rank 0
+printed once every rank has exited 0; if any fails, it exits non-zero and
+prints no result.
 """
 
 from __future__ import annotations
@@ -67,13 +73,42 @@ def result_line(cell, run: dict, trace: bool, device: dict) -> dict:
     return line
 
 
+def rank_arguments(ap: argparse.ArgumentParser) -> None:
+    """The arguments a launcher gives each rank it starts (``ranks.py``)."""
+    for name, kind in (("--rank", int), ("--port", int), ("--started", float), ("--cores", str)):
+        ap.add_argument(name, type=kind, default=None, help=argparse.SUPPRESS)
+
+
+def launched(module: str, argv: list, world: int) -> int:
+    """Run ``module`` with ``argv`` as ``world`` ranks, and pass on what
+    they printed (rank 0's standard output last)."""
+    from benchmark import ranks
+
+    started = time.time() - (time.perf_counter() - T0)
+    code, out, err = ranks.launch(ranks.rank_commands(module, argv, world, started))
+    print(err, end="", file=sys.stderr, flush=True)
+    found = forbidden_modules()
+    if code == 0 and found:
+        print(f"loaded in the launcher: {', '.join(found)}", file=sys.stderr)
+        code = 3
+    if code == 0:
+        print(out, end="", flush=True)
+    return code
+
+
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seed", type=int, required=True)
     ap.add_argument("--seconds", type=float, required=True)
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
+    rank_arguments(ap)
     args = ap.parse_args(argv)
+    if args.rank is not None:
+        from benchmark import ranks
+
+        ranks.pin(args.cores)
     _caches()
     from benchmark import spec
 
@@ -84,20 +119,33 @@ def main(argv=None) -> int:
         print(f"needs {cell.chips} CUDA card(s); found "
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}", file=sys.stderr)
         return 2
+    if cell.chips > 1 and args.rank is None:
+        return launched("benchmark.run", argv, cell.chips)
     from benchmark import harness
 
     trace = bool(args.trace)
-    run = harness.run(cell, args.seed, args.seconds, trace, T0)
+    if args.rank is None:
+        run = harness.run(cell, args.seed, args.seconds, trace, T0)
+    else:
+        from benchmark import ranks
+
+        dev = torch.device("cuda", args.rank)
+        torch.cuda.set_device(dev)
+        group = ranks.start(args.rank, cell.chips, args.port, dev)
+        run = harness.run(cell, args.seed, args.seconds, trace, ranks.since(args.started),
+                          device=dev, ranks=group)
     found = forbidden_modules()
     if found:
         print(f"loaded in the measuring process: {', '.join(found)}", file=sys.stderr)
         return 3
+    if run is None:
+        return 0
     dev = torch.device("cuda", 0)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(dev), "count": cell.chips,
               "memory_peak_bytes": run["ctx"]["peak_bytes"], "power_limit": power_limit()}
     prof = run["ctx"]["profile"]
     if trace and prof:
-        device["busy_s"] = prof["busy_s"]
+        device["busy_s"] = run["busy_s"]
         device["window_s"] = prof["wall_s"]
         print(f"# launches per call of the port's kernels: {json.dumps(run['launches'])}")
     line = result_line(cell, run, trace, device)
@@ -111,4 +159,8 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    if "--rank" not in sys.argv:
+        sys.exit(main())
+    from benchmark import ranks
+
+    ranks.run_rank(main)
