@@ -50,6 +50,10 @@ Phases, one JSON line each (any failure ends the run with a non-zero exit):
    conditional LayerNorm + residual) against their plain versions at every
    ScOT-B, ScOT-L and ScOT-T batch-32 stage they serve, with a per-image scale and
    shift that differ by image and channel, times and bounds as in 2 and 6;
+   then the conditional LayerNorm's kernels (``ops/norm.py``) against the
+   chain they replace at every conditional norm's shape of ScOT-B (batch
+   256) and ScOT-L (batch 128), bf16 and fp32, a lead time per image
+   (``phase_cond_norm_kernels``);
 10. separate-q/k/v attention: the op ``poseidon_tpu_torch.ops.
    fused_window_attention`` forward and backward through autograd at every
    ScOT-B, ScOT-L and ScOT-T attention shape and T = 49 (nthd) and at one
@@ -135,9 +139,10 @@ Phases, one JSON line each (any failure ends the run with a non-zero exit):
 
     python3 chip_smoke.py --phase data_parallel   # phase 25 alone
     python3 chip_smoke.py --phase bench           # phase 26 alone
+    python3 chip_smoke.py --phase cond_norm       # the norm kernels of phase 9 alone
 
-runs one phase alone, after the cards' line and the build of the four
-sources the bf16 step runs; with four cards the data parallel phase adds
+runs one phase alone, after the cards' line and the build of the sources
+it runs; with four cards the data parallel phase adds
 the throughput and memory cells (``DP_CELLS``).
 
 Exits non-zero without printing results when CUDA is absent.
@@ -760,6 +765,171 @@ def phase_cln_kernels(pt, mlp_op, bound_ms, card):
     return results
 
 
+# The conditional LayerNorm's kernels (ops/norm.py) at the train cells'
+# batches: (model, batch, tag, C, rows an image, NHWC) of every conditional
+# norm's shape of ScOT-B and ScOT-L at 128 x 128 (the embedding, merge and
+# expand norms share the block norms' shapes; the ConvNeXt skips' are NHWC).
+COND_NORM_BATCH = {"B": 256, "L": 128}
+
+
+def cond_norm_shapes(pt):
+    out = []
+    for model_name in ("B", "L"):
+        cfg = pt.make_config(model_name, image_size=128, num_channels=4, num_out_channels=4)
+        for i in range(cfg.num_stages):
+            c, l = cfg.stage_dim(i), cfg.stage_resolution(i) ** 2
+            out.append((model_name, f"stage{i}", c, l, False))
+            if i < cfg.num_stages - 1:
+                out.append((model_name, f"stage{i}_nhwc", c, l, True))
+    return out
+
+
+def cond_norm_case(b, c, l, nhwc, dtype, gen):
+    """x, dy (``dtype``), a lead time per image (image 0 at 0), and the chain
+    module (``"xla"``) with maps drawn so that scale and shift differ by
+    channel and image, on the card."""
+    from poseidon_tpu_torch.models.layers import ConditionalLayerNorm
+
+    side = int(math.isqrt(l))
+    shape = (b, side, side, c) if nhwc else (b, l, c)
+    x = (3 * torch.randn(shape, generator=gen) + 1).to("cuda", dtype)
+    dy = torch.randn(shape, generator=gen).to("cuda", dtype)
+    t = 2.5 * torch.rand(b, generator=gen)
+    t[0] = 0.0
+    m = ConditionalLayerNorm(c)
+    with torch.no_grad():
+        for p in m.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen))
+        m.weight.bias.add_(1.0)
+    return x, dy, t.to("cuda"), m.to("cuda")
+
+
+COND_NORM_TOL = ("y and dx: bf16 within 2^-7 relative or 1e-3 of the rms, fp32 relative L2 "
+                 "<= 1e-5; the four map gradients relative L2 <= 1e-4; second backward "
+                 "bit-identical")
+
+
+def cond_norm_close(out, ref):
+    """``tests/test_torch_kernels_cuda.py``'s tolerances for y and dx:
+    outputs rounded once from fp32 values that differ by the order of fp32
+    sums, in bf16 within one bf16 ulp (2^-7 relative) or 1e-3 of the rms
+    near zero, in fp32 within relative L2 1e-5."""
+    a, b = out.float(), ref.float()
+    if not bool(torch.isfinite(a).all()):
+        return False
+    if out.dtype == torch.float32:
+        return float((a - b).norm() / b.norm()) <= 1e-5
+    rms = float(b.pow(2).mean().sqrt())
+    return bool(((a - b).abs() <= 2.0 ** -7 * b.abs() + 1e-3 * rms).all())
+
+
+def cond_norm_bound(m, c, bound_ms, backward=False, es=2):
+    """Forward: x read and y written (``es`` bytes a value), the rows' mean
+    and rstd written (8 bytes a row), the lead time and the four maps read;
+    ~7 fp32 FLOPs an element. Backward: x and dy read, dx written, the rows'
+    statistics read, two maps read and four gradients written; ~17 fp32
+    FLOPs an element. The backward's per-CTA partials are this design's,
+    not the function's, and are left out."""
+    if not backward:
+        return bound_ms(7.0 * m * c, 2 * m * c * es + 8 * m + 4 * c * 4, fp32=True)
+    return bound_ms(17.0 * m * c, 3 * m * c * es + 8 * m + 6 * c * 4, fp32=True)
+
+
+def phase_cond_norm_kernels(pt, bound_ms, card):
+    """The conditional LayerNorm's forward and backward kernels against the
+    chain they replace (``ConditionalLayerNorm`` under ``"xla"``, and its
+    autograd) at every conditional norm's shape of ScOT-B (batch 256) and
+    ScOT-L (batch 128), bf16 and fp32, a lead time per image (image 0's 0):
+    y, dx and the four map gradients (``COND_NORM_TOL``), a second backward
+    call bit-identical; kernel, chain (``plain``) and library (F.layer_norm
+    and the affine) ms by CUDA events, and in bf16 device ms by the
+    profiler, with the bound (``cond_norm_bound``)."""
+    from poseidon_tpu_torch.ops import norm
+
+    gen = torch.Generator().manual_seed(11)
+    results = {"fwd": [], "bwd": []}
+    names = ("dx", "dw_scale", "db_scale", "dw_shift", "db_shift")
+    for model_name, tag, c, l, nhwc in cond_norm_shapes(pt):
+        b = COND_NORM_BATCH[model_name]
+        for dtype in (torch.bfloat16, torch.float32):
+            x, dy, t, m = cond_norm_case(b, c, l, nhwc, dtype, gen)
+            maps = (m.weight.weight, m.weight.bias, m.bias.weight, m.bias.bias)
+            vals = [p.detach() for p in maps]
+            eps, rows = m.eps, x.numel() // c
+            outs = []
+            for kernel in (True, False):
+                xr = x.clone().requires_grad_()
+                y = norm.cond_layer_norm(xr, t, *maps, eps) if kernel else m(xr, t)
+                outs.append([y.detach()] + [g.detach() for g in
+                                            torch.autograd.grad(y, [xr, *maps], dy)])
+                del xr, y
+            (y, *grads), (y0, *grads0) = outs
+            _, mean, rstd = norm._forward(x, t, *vals, eps)
+            first = norm.cond_layer_norm_bwd(x, t, *vals[:2], mean, rstd, dy)
+            again = norm.cond_layer_norm_bwd(x, t, *vals[:2], mean, rstd, dy)
+            torch.cuda.synchronize()
+            shape = f"{tag} {dtype_name(dtype)}: B={b} L={l} C={c}"
+            scale, shift = (norm._affine(t, w, bb, x).to(dtype) for w, bb in
+                            ((vals[0], vals[1]), (vals[2], vals[3])))
+
+            def library(xx, s, sh):
+                return F.layer_norm(xx, (c,), eps=eps) * s + sh
+
+            timed = dtype == torch.bfloat16
+            with torch.no_grad():
+                fwd = {"kernel": lambda: norm._forward(x, t, *vals, eps),
+                       "plain": lambda: m(x, t), "library": lambda: library(x, scale, shift)}
+                row = {"phase": "cond_norm_kernel", "kernel": "cond_layer_norm_fwd",
+                       "model": model_name, "shape": shape,
+                       "max_abs_err": float((y.float() - y0.float()).abs().max()),
+                       "rel_l2": float((y.float() - y0.float()).norm() / y0.float().norm()),
+                       "tol": COND_NORM_TOL, "ok": cond_norm_close(y, y0),
+                       **{f"{k}_ms": cuda_ms(fn) for k, fn in fwd.items()},
+                       **({f"{k}_device_ms": device_ms(fn) for k, fn in fwd.items()}
+                          if timed else {})}
+            row.update(zip(("bound_ms", "bound_by"),
+                           cond_norm_bound(rows, c, bound_ms, es=x.element_size())))
+            row["card"] = card
+            emit(row)
+            results["fwd"].append(row)
+            if not row["ok"]:
+                raise SystemExit(f"cond_layer_norm_fwd kernel disagrees at {shape}")
+            errs = compare(names, grads, grads0)
+            ok = (cond_norm_close(grads[0], grads0[0])
+                  and all(errs[k]["rel_l2"] <= 1e-4 for k in names[1:])
+                  and all(torch.equal(p, q) for p, q in zip(first, again))
+                  and torch.equal(first[0], grads[0]))
+            xr = x.clone().requires_grad_()
+            chain_y = m(xr, t)
+            leaves = [x.clone().requires_grad_(), scale.clone().requires_grad_(),
+                      shift.clone().requires_grad_()]
+            lib_y = library(*leaves)
+            bwd = {"kernel": lambda: norm.cond_layer_norm_bwd(x, t, *vals[:2], mean, rstd, dy),
+                   "plain": lambda: torch.autograd.grad(chain_y, [xr, *maps], dy,
+                                                        retain_graph=True),
+                   "library": lambda: torch.autograd.grad(lib_y, leaves, dy,
+                                                          retain_graph=True)}
+            row = {"phase": "cond_norm_kernel", "kernel": "cond_layer_norm_bwd",
+                   "model": model_name, "shape": shape, "errors": errs,
+                   "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+                   "tol": COND_NORM_TOL, "ok": ok,
+                   "plan": norm.plan(rows, c, l, dtype, True),
+                   **{f"{k}_ms": cuda_ms(fn) for k, fn in bwd.items()},
+                   **({f"{k}_device_ms": device_ms(fn) for k, fn in bwd.items()}
+                      if timed else {})}
+            row.update(zip(("bound_ms", "bound_by"),
+                           cond_norm_bound(rows, c, bound_ms, backward=True,
+                                           es=x.element_size())))
+            row["card"] = card
+            emit(row)
+            results["bwd"].append(row)
+            if not ok:
+                raise SystemExit(f"cond_layer_norm_bwd kernels disagree at {shape}")
+            del x, dy, m, outs, y, y0, grads, grads0, first, again, xr, chain_y, leaves, lib_y
+            torch.cuda.empty_cache()
+    return results
+
+
 def op_case(attn_mod, n, t, heads, d, nw, window, res, shift, gen):
     """Separate (N, T, H, D) bf16 q, k, v and output cotangent, the (H, T, T)
     position bias, the doubled (nW, T, T) shift mask (zeros, nW = 1, when
@@ -1215,15 +1385,48 @@ def perturb_attention(model, attention_cls, gen, tail=False):
                 draw(s.value.bias, 0.05)
 
 
-def block_launches(model, wa, mlp_op, fused_tail=False, backward=False):
+# Conditional norms of a conditioned ScOT-B or ScOT-L forward at 128 x 128: the
+# embedding's, two a Swin block, three merges, three expands, six ConvNeXt.
+SCOT_NORMS = 141
+
+
+def cond_norm_launches(model, mlp_op, fused_tail=False):
+    """(in the Swin blocks, elsewhere): the conditional norms of a forward
+    under ``"pallas"``, each one launch of the norm kernel (``ops/norm.py``),
+    but for the fused tail's own norm where the tail takes the block."""
+    from poseidon_tpu_torch.models.layers import ConditionalLayerNorm
+    from poseidon_tpu_torch.models.scot import SwinBlock
+
+    if model.config.attention_impl != "pallas":
+        return 0, 0
+    block, in_blocks = 0, set()
+    for blk in (m for m in model.modules() if isinstance(m, SwinBlock)):
+        fc = blk.intermediate.dense
+        tail = fused_tail and mlp_op.use_fused_tail(fc.in_features, blk.resolution ** 2,
+                                                    fc.out_features)
+        runs = (blk.layernorm_before,) if tail else (blk.layernorm_before, blk.layernorm_after)
+        block += sum(isinstance(n, ConditionalLayerNorm) for n in runs)
+        in_blocks |= {id(blk.layernorm_before), id(blk.layernorm_after)}
+    other = sum(isinstance(m, ConditionalLayerNorm) and id(m) not in in_blocks
+                for m in model.modules())
+    return block, other
+
+
+def block_launches(model, wa, mlp_op, fused_tail=False, backward=False, recompute=False):
     """The kernel launches a forward (with ``backward``, a forward and its
     backward) of the model should make: per Swin block the attention kernel
     that ``attention_kernel_for`` picks, and the MLP kernel that
     ``use_mlp_kernel`` and ``mlp_kernel_for`` pick, or the fused tail where
     ``use_fused_tail`` takes the block (its Hopper or its general kernels,
-    as ``mlp_kernel_for`` picks)."""
+    as ``mlp_kernel_for`` picks); and the conditional norms' kernel
+    (:func:`cond_norm_launches`). With ``recompute`` (remat True or
+    "save_dots") the blocks' forward launches count twice."""
     from poseidon_tpu_torch.models.scot import SwinBlock
     want = launches()
+    reps = 2 if recompute else 1
+    block, other = cond_norm_launches(model, mlp_op, fused_tail)
+    want["cond_layer_norm_fwd"] = reps * block + other
+    want["cond_layer_norm_bwd"] = block + other if backward else 0
     for blk in (m for m in model.modules() if isinstance(m, SwinBlock)):
         attn = blk.attention
         kind = wa.attention_kernel_for(model.dtype, attn.window_size ** 2,
@@ -1238,7 +1441,7 @@ def block_launches(model, wa, mlp_op, fused_tail=False, backward=False):
             names.append("fused_mlp" if mlp_op.mlp_kernel_for(c, f, model.dtype) == "wgmma"
                          else "mlp_general")
         for name in names:
-            want[name + "_fwd"] += 1
+            want[name + "_fwd"] += reps
             if backward:
                 want[name + "_bwd"] += 1
     return want
@@ -2035,15 +2238,11 @@ def phase_remat(pt, wa, mlp_op, model, card):
         return float(loss.detach()), vec, gen.get_state(), counts
 
     loss0, vec0, state0, _ = grads(False)
-    per_step = block_launches(m, wa, mlp_op, backward=True)
     rows, ok = {}, True
     for mode in REMAT_MODES:
         loss, vec, state, counts = grads(mode)
-        want = dict(per_step)
-        if mode in (True, "save_dots"):
-            for name in want:
-                if name.endswith("_fwd"):
-                    want[name] *= 2
+        want = block_launches(m, wa, mlp_op, backward=True,
+                              recompute=mode in (True, "save_dots"))
         rel = float((vec - vec0).norm() / vec0.norm())
         row = {"loss": loss, "loss_equal": loss == loss0, "grad_rel_l2": rel,
                "grads_bit_identical": bool(torch.equal(vec, vec0)),
@@ -2330,7 +2529,8 @@ def phase_cli_inference(pt, card, run_dir, data, root):
 
     def general(n_forwards):
         return launches(window_attention_general_fwd=64 * n_forwards,
-                        mlp_general_fwd=32 * n_forwards)
+                        mlp_general_fwd=32 * n_forwards,
+                        cond_layer_norm_fwd=SCOT_NORMS * n_forwards)
 
     rows = {}
     eval_s, c = run("eval", "eval.csv")
@@ -2388,7 +2588,8 @@ def phase_intermediates(pt, attn_mod, card):
     the model phase's recipe): the prediction against the kernel-path
     forward (relative L2 <= FP32_REL_TOL), 8 hidden states of the stages'
     shapes, 64 attention tensors (N*nW, heads, T, T) whose rows sum to 1,
-    no kernel launched during the call, and the model unchanged after it
+    no attention or MLP kernel launched during the call (the conditional
+    norms keep their kernel: 141 launches), and the model unchanged after it
     (its ``attention_impl``, the launches and the output of its next
     forward); then ``rollout_with_intermediates`` with 2 steps at batch 2,
     every tensor stacked on axis 1."""
@@ -2436,8 +2637,9 @@ def phase_intermediates(pt, attn_mod, card):
                and all(a.shape[1] == 2 for a in r_att) and bool(torch.isfinite(r_pred).all()))
     del r_pred, r_hs, r_att
     ok = (rel <= FP32_REL_TOL and hs_shapes == want_hs and n_att == 64 and row_err <= 1e-5
-          and during == launches() and before == after
-          and before == launches(window_attention_general_fwd=64, mlp_general_fwd=32)
+          and during == launches(cond_layer_norm_fwd=SCOT_NORMS) and before == after
+          and before == launches(window_attention_general_fwd=64, mlp_general_fwd=32,
+                                 cond_layer_norm_fwd=SCOT_NORMS)
           and model.config.attention_impl == "pallas" and bool(torch.equal(again, ref))
           and roll_ok)
     emit({"phase": "intermediates", "model": "ScOT-B 128x128 c4 fp32 conditioned", "batch": b,
@@ -2853,7 +3055,8 @@ def bench_graph_vs_eager():
                     "param_rel_l2": rel(pg, pr), "loss_max_abs_diff": float((lg - lr_).abs().max()),
                     "param_max_abs_diff": float((pg - pr).abs().max())}
     want = launches(window_attention_fwd=64, window_attention_bwd=64, fused_mlp_fwd=32,
-                    fused_mlp_bwd=32)
+                    fused_mlp_bwd=32, cond_layer_norm_fwd=SCOT_NORMS,
+                    cond_layer_norm_bwd=SCOT_NORMS)
     same = cmp["eager_capturable"]
     ok = (same["loss_rel_l2"] <= BENCH_GRAPH_TOL and same["param_rel_l2"] <= BENCH_GRAPH_TOL
           and cmp["eager"]["loss_rel_l2"] <= BENCH_GRAPH_TOL and graph_launches == want)
@@ -2926,7 +3129,8 @@ def phase_bench(card):
 
 def kernels_line(results, bwd_results, cln_results, op_results, per_forward, rollout_counts,
                  step_counts, tail_forward, tail_counts, op_counts, general, f32_counts,
-                 odd_counts, trainer_counts, trainer_steps, b32_counts, general_tail, paths):
+                 odd_counts, trainer_counts, trainer_steps, b32_counts, general_tail, paths,
+                 norm_results):
     """One entry per hand-written kernel. ``launches`` is the count from the
     path that runs it: the train step (the first four; with the Trainer's
     steps beside it), the fused-tail train step (the tail's two), the op's
@@ -2938,8 +3142,10 @@ def kernels_line(results, bwd_results, cln_results, op_results, per_forward, rol
     mlp_ratio-3 ScOT-T steps' beside it). ``paths`` adds,
     to every entry, its launches in each later path (``<path>_launches``:
     the remat step, the train CLI, the fine-tune, the inference CLI's
-    ``eval``)."""
-    def entry(name, source, replaces, rows, shape_prefix, counts, **extra):
+    ``eval``). The conditional norm's two (``norm_results``) are timed at
+    ScOT-B's train batch, 256."""
+    def entry(name, source, replaces, rows, shape_prefix, counts, label="ScOT-B b32 ",
+              **extra):
         row = next(r for r in rows if r["model"] == "B" and r["shape"].startswith(shape_prefix))
         b_rows = [r for r in rows if r["model"] == "B"]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces, **extra,
@@ -2950,7 +3156,7 @@ def kernels_line(results, bwd_results, cln_results, op_results, per_forward, rol
                 **({"device_ms": row["kernel_device_ms"],
                     "library_device_ms": row["library_device_ms"]}
                    if "kernel_device_ms" in row else {}),
-                "shape": "ScOT-B b32 " + row["shape"]}
+                "shape": label + row["shape"]}
 
     def main_path(name):
         return {"forward_launches": per_forward[name], "rollout_launches": rollout_counts[name],
@@ -3030,6 +3236,12 @@ def kernels_line(results, bwd_results, cln_results, op_results, per_forward, rol
                       also_replaces="poseidon_tpu/ops/mlp.py:114, poseidon_tpu/ops/mlp.py:130"),
         general_tail_entry("mlp_cln_general_fwd", "poseidon_tpu/ops/mlp.py:272", tail_rows["fwd"]),
         general_tail_entry("mlp_cln_general_bwd", "poseidon_tpu/ops/mlp.py:284", tail_rows["bwd"]),
+        entry("cond_layer_norm_fwd", csrc + "cond_layer_norm.cu",
+              "poseidon_tpu/models/layers.py:71", norm_results["fwd"], "stage0 bf16",
+              step_counts, label="ScOT-B ", **main_path("cond_layer_norm_fwd")),
+        entry("cond_layer_norm_bwd", csrc + "cond_layer_norm.cu",
+              "poseidon_tpu/models/layers.py:71", norm_results["bwd"], "stage0 bf16",
+              step_counts, label="ScOT-B ", **main_path("cond_layer_norm_bwd")),
     ]}, paths)
 
 
@@ -3040,13 +3252,13 @@ def _with_paths(line, paths):
     return line
 
 
-DP_SOURCES = ("window_attention", "window_attention_bwd", "mlp", "mlp_bwd")
+DP_SOURCES = ("window_attention", "window_attention_bwd", "mlp", "mlp_bwd", "cond_layer_norm")
 
 
-def phase_dp_environment(build):
-    """``--phase data_parallel`` or ``bench``: the cards (name and power limit, and how
-    they are linked) and the build of the sources the bf16 train step
-    runs."""
+def phase_dp_environment(build, sources=DP_SOURCES):
+    """``--phase data_parallel``, ``bench`` or ``cond_norm``: the cards (name
+    and power limit, and how they are linked) and the build of ``sources``
+    (by default those the bf16 train step runs)."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True, text=True,
@@ -3057,7 +3269,7 @@ def phase_dp_environment(build):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    seconds = build.build(DP_SOURCES)
+    seconds = build.build(sources)
     emit({"phase": "environment", "python": sys.version.split()[0], "torch": torch.__version__,
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
           "cards": torch.cuda.device_count(), "nvidia_smi": smi.splitlines(),
@@ -3069,8 +3281,9 @@ def main(argv) -> int:
     if argv[:1] == ["--dp-worker"]:
         dp_worker(int(argv[1]), int(argv[2]), argv[3])
         return 0
-    if argv not in ([], ["--phase", "data_parallel"], ["--phase", "bench"]):
-        print("usage: chip_smoke.py [--phase data_parallel|bench]", file=sys.stderr)
+    if argv not in ([], ["--phase", "data_parallel"], ["--phase", "bench"],
+                    ["--phase", "cond_norm"]):
+        print("usage: chip_smoke.py [--phase data_parallel|bench|cond_norm]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing run", file=sys.stderr)
@@ -3082,9 +3295,12 @@ def main(argv) -> int:
     from poseidon_tpu_torch.utils.device import bound_ms
 
     if argv:
-        card = phase_dp_environment(_build)
+        card = phase_dp_environment(_build, ("cond_layer_norm",) if argv[1] == "cond_norm"
+                                    else DP_SOURCES)
         if argv[1] == "bench":
             phase_bench(card)
+        elif argv[1] == "cond_norm":
+            phase_cond_norm_kernels(pt, bound_ms, card)
         else:
             phase_data_parallel(pt, card)
         emit(device_line())
@@ -3098,6 +3314,7 @@ def main(argv) -> int:
     step, step_counts, step_ms = phase_train(pt, wa_mod, mlp_op, model, card)
     phase_train_profile(step, step_ms, card)
     cln_results = phase_cln_kernels(pt, mlp_op, bound_ms, card)
+    norm_results = phase_cond_norm_kernels(pt, bound_ms, card)
     op_results, op_counts = phase_fused_attention(pt, wa_mod, attn_mod, bound_ms, card)
     tail_model, _, _, tail_forward, _ = phase_model(pt, wa_mod, mlp_op, attn_mod, card,
                                                     fused_tail=True)
@@ -3162,7 +3379,7 @@ def main(argv) -> int:
     emit(kernels_line(results, bwd_results, cln_results, op_results, per_forward,
                       rollout_counts, step_counts, tail_forward, tail_counts, op_counts, general,
                       f32_counts, odd_counts, trainer_counts, trainer_steps, b32_counts,
-                      {**b32_tail, **t_tail, "kernels": general_cln}, paths))
+                      {**b32_tail, **t_tail, "kernels": general_cln}, paths, norm_results))
     emit(device_line())
     return 0
 

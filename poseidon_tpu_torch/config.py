@@ -6,7 +6,7 @@ copy: the JAX package's ``__init__`` imports flax.
 
 ``attention_impl`` keeps its JAX spelling: ``"xla"`` selects the plain
 PyTorch path, ``"pallas"`` the hand-written Hopper kernels
-(``ops/window_attention.py``, ``ops/mlp.py``).
+(``ops/window_attention.py``, ``ops/mlp.py``, ``ops/norm.py``).
 """
 
 from __future__ import annotations

@@ -91,15 +91,25 @@ class DropPath(nn.Module):
 class ConditionalLayerNorm(nn.Module):
     """Lead-time-conditioned LayerNorm: no learned affine of its own, then
     ``y = W_s(t) * x_hat + W_b(t)``. ``weight``/``bias`` are Linear(1, C)
-    maps of the scalar lead time, as in the reference state dict."""
+    maps of the scalar lead time, as in the reference state dict.
 
-    def __init__(self, dim: int, eps: float = 1e-5):
+    Under ``impl="pallas"`` a CUDA x goes to the kernels
+    (``ops/norm.py::cond_layer_norm``, which raises for operands they do
+    not take); the chain below is the plain path they are held to."""
+
+    def __init__(self, dim: int, eps: float = 1e-5, impl: str = "xla"):
         super().__init__()
         self.eps = eps
+        self.impl = impl
         self.weight = nn.Linear(1, dim)
         self.bias = nn.Linear(1, dim)
 
     def forward(self, x: torch.Tensor, time: Optional[torch.Tensor]) -> torch.Tensor:
+        if self.impl == "pallas" and x.is_cuda:
+            from ..ops import norm  # here: the ops package imports this module
+
+            return norm.cond_layer_norm(x, time, self.weight.weight, self.weight.bias,
+                                        self.bias.weight, self.bias.bias, self.eps)
         y = _layer_stats(x, self.eps)
         t = time.reshape(-1, 1).float()
         scale = F.linear(t, self.weight.weight, self.weight.bias)
@@ -125,9 +135,11 @@ class PlainLayerNorm(nn.Module):
         return (_layer_stats(x, self.eps) * self.weight + self.bias).to(self.dtype)
 
 
-def make_norm(use_conditioning: bool, dim: int, eps: float, dtype: torch.dtype) -> nn.Module:
+def make_norm(use_conditioning: bool, dim: int, eps: float, dtype: torch.dtype,
+              impl: str = "xla") -> nn.Module:
+    """The block norm: conditional (on ``impl``'s path) or plain."""
     if use_conditioning:
-        return ConditionalLayerNorm(dim, eps)
+        return ConditionalLayerNorm(dim, eps, impl)
     return PlainLayerNorm(dim, eps, dtype)
 
 
@@ -200,11 +212,11 @@ class PatchMerging(nn.Module):
     -> norm (reduction before norm)."""
 
     def __init__(self, dim: int, input_resolution: int, use_conditioning: bool,
-                 eps: float = 1e-5, dtype: torch.dtype = torch.float32):
+                 eps: float = 1e-5, dtype: torch.dtype = torch.float32, impl: str = "xla"):
         super().__init__()
         self.input_resolution = input_resolution
         self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False)
-        self.norm = make_norm(use_conditioning, 2 * dim, eps, dtype)
+        self.norm = make_norm(use_conditioning, 2 * dim, eps, dtype, impl)
 
     def forward(self, x: torch.Tensor, time: Optional[torch.Tensor]) -> torch.Tensor:
         b, _, c = x.shape
@@ -222,12 +234,12 @@ class PatchUnmerging(nn.Module):
     (2H, 2W, C/2) -> norm -> bias-free Linear(C/2 -> C/2) mixup."""
 
     def __init__(self, dim: int, input_resolution: int, use_conditioning: bool,
-                 eps: float = 1e-5, dtype: torch.dtype = torch.float32):
+                 eps: float = 1e-5, dtype: torch.dtype = torch.float32, impl: str = "xla"):
         super().__init__()
         self.input_resolution = input_resolution
         self.upsample = nn.Linear(dim, 2 * dim, bias=False)
         self.mixup = nn.Linear(dim // 2, dim // 2, bias=False)
-        self.norm = make_norm(use_conditioning, dim // 2, eps, dtype)
+        self.norm = make_norm(use_conditioning, dim // 2, eps, dtype, impl)
 
     def forward(self, x: torch.Tensor, time: Optional[torch.Tensor]) -> torch.Tensor:
         b, _, c = x.shape
@@ -244,11 +256,11 @@ class ConvNeXtBlock(nn.Module):
     GELU -> Linear(4C -> C) -> layer scale (init 1e-6) -> residual."""
 
     def __init__(self, dim: int, use_conditioning: bool, eps: float = 1e-5,
-                 drop_path: float = 0.0, dtype: torch.dtype = torch.float32):
+                 drop_path: float = 0.0, dtype: torch.dtype = torch.float32, impl: str = "xla"):
         super().__init__()
         self.dtype = dtype
         self.dwconv = nn.Conv2d(dim, dim, 7, padding=3, groups=dim)
-        self.norm = make_norm(use_conditioning, dim, eps, dtype)
+        self.norm = make_norm(use_conditioning, dim, eps, dtype, impl)
         self.pwconv1 = nn.Linear(dim, 4 * dim)
         self.pwconv2 = nn.Linear(4 * dim, dim)
         self.weight = nn.Parameter(torch.full((dim,), 1e-6))  # layer scale

@@ -127,11 +127,13 @@ class SwinBlock(nn.Module):
             score_dtype=torch.bfloat16 if cfg.score_dtype == "bfloat16" else torch.float32,
             attn_drop=cfg.attention_probs_dropout_prob,
             proj_drop=cfg.attention_probs_dropout_prob)
-        self.layernorm_before = make_norm(cfg.use_conditioning, dim, cfg.layer_norm_eps, dtype)
+        self.layernorm_before = make_norm(cfg.use_conditioning, dim, cfg.layer_norm_eps, dtype,
+                                          cfg.attention_impl)
         f = int(cfg.mlp_ratio * dim)
         self.intermediate = _Dense(dim, f)
         self.output = _Dense(f, dim)
-        self.layernorm_after = make_norm(cfg.use_conditioning, dim, cfg.layer_norm_eps, dtype)
+        self.layernorm_after = make_norm(cfg.use_conditioning, dim, cfg.layer_norm_eps, dtype,
+                                         cfg.attention_impl)
         self.drop_path = DropPath(drop_path)
 
     def kernels_on(self) -> bool:
@@ -334,7 +336,7 @@ class Encoder(nn.Module):
             resample = {}
             if i < cfg.num_stages - 1:
                 resample["downsample"] = PatchMerging(
-                    dim, res, cfg.use_conditioning, cfg.layer_norm_eps, dtype)
+                    dim, res, cfg.use_conditioning, cfg.layer_norm_eps, dtype, cfg.attention_impl)
             layers.append(_Stage(blocks, **resample))
         self.layers = nn.ModuleList(layers)
 
@@ -379,7 +381,7 @@ class Decoder(nn.Module):
             resample = {}
             if lvl > 0:
                 resample["upsample"] = PatchUnmerging(
-                    dim, res, cfg.use_conditioning, cfg.layer_norm_eps, dtype)
+                    dim, res, cfg.use_conditioning, cfg.layer_norm_eps, dtype, cfg.attention_impl)
             layers.append(_Stage(blocks, **resample))
         self.layers = nn.ModuleList(layers)
 
@@ -409,7 +411,7 @@ class _Embeddings(nn.Module):
         self.patch_embeddings = PatchEmbed(cfg.patch_size, cfg.num_channels,
                                            cfg.embed_dim, dtype)
         # The embedding norm's eps is 1e-5 whatever layer_norm_eps says.
-        self.norm = make_norm(cfg.use_conditioning, cfg.embed_dim, 1e-5, dtype)
+        self.norm = make_norm(cfg.use_conditioning, cfg.embed_dim, 1e-5, dtype, cfg.attention_impl)
         if use_mask_token:
             self.mask_token = nn.Parameter(torch.zeros(1, 1, cfg.embed_dim))
         if cfg.use_absolute_embeddings:
@@ -441,7 +443,8 @@ class ScOT(nn.Module):
             dim = cfg.stage_dim(i)
             if cfg.residual_model == "convnext":
                 stage = [ConvNeXtBlock(dim, cfg.use_conditioning, cfg.layer_norm_eps,
-                                       dtype=dtype) for _ in range(depth)]
+                                       dtype=dtype, impl=cfg.attention_impl)
+                         for _ in range(depth)]
             else:
                 stage = [ResNetBlock(dim, dtype) for _ in range(depth)]
             blocks.append(nn.ModuleList(stage))

@@ -1,9 +1,11 @@
-"""The hand-written kernels' ops (``window_attention``, ``mlp``) and their
-launch counters: each wrapper adds one to its counter where it launches
-its kernel, and nowhere else but a CUDA graph's replay, which adds the
-launches its capture counted (:func:`add_launch_counts`)."""
+"""The hand-written kernels' ops (``window_attention``, ``mlp``,
+``cond_layer_norm``) and their launch counters: each wrapper adds one to
+its counter where it launches its kernel, and nowhere else but a CUDA
+graph's replay, which adds the launches its capture counted
+(:func:`add_launch_counts`)."""
 
 from . import mlp as _mlp
+from . import norm as _norm
 from . import window_attention as _wa
 from .window_attention import fused_window_attention
 
@@ -25,6 +27,8 @@ COUNTERS = (
     ("mlp_general_bwd", _mlp.mlp_bwd, "launches_general"),
     ("mlp_cln_general_fwd", _mlp.mlp_cln, "launches_general"),
     ("mlp_cln_general_bwd", _mlp.mlp_cln_bwd, "launches_general"),
+    ("cond_layer_norm_fwd", _norm.cond_layer_norm, "launches"),
+    ("cond_layer_norm_bwd", _norm.cond_layer_norm_bwd, "launches"),
 )
 
 

@@ -27,7 +27,8 @@ from typing import Dict, Iterable, Sequence
 import torch
 
 SOURCES = ("window_attention", "window_attention_bwd", "window_attention_general", "mlp",
-           "mlp_bwd", "mlp_cln", "mlp_cln_bwd", "mlp_general", "mlp_cln_general")
+           "mlp_bwd", "mlp_cln", "mlp_cln_bwd", "mlp_general", "mlp_cln_general",
+           "cond_layer_norm")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -201,7 +201,7 @@ def test_launch_counters_name_every_wrapper():
     from poseidon_tpu_torch.ops import mlp, window_attention
 
     ops.reset_launch_counts()
-    assert set(ops.launch_counts().values()) == {0} and len(ops.COUNTERS) == 16
+    assert set(ops.launch_counts().values()) == {0} and len(ops.COUNTERS) == 18
     window_attention.window_attention_bwd.launches += 2
     mlp.mlp.launches_general += 1
     counts = ops.launch_counts()

@@ -10,7 +10,9 @@ bf16 at different points). The general kernels (fp32 operands and the
 shapes the wgmma kernels refuse) are held to the fp32 plain versions by
 relative L2 <= 1e-4 (TF32 off in the plain versions; the sum order, and for
 the attention kernels the 3xTF32 split, are the only differences) and in
-bf16 as above; so are the general fused-tail kernels. They need a CUDA card
+bf16 as above; so are the general fused-tail kernels. The conditional
+LayerNorm's kernels (``ops/norm.py``) are held to the chain they replace and
+its autograd, with the tolerances their tests state. They need a CUDA card
 and skip without one. This file imports neither JAX nor the JAX package, so
 it runs on a machine without them:
 
@@ -729,3 +731,201 @@ def test_two_rank_ddp_step_on_one_card(tmp_path):
     # Every element within a thousandth of the learning rate (AdamW's first
     # step scales the round-off of near-zero gradients up to a share of it).
     assert float((got - want).abs().max()) <= 1e-6
+
+
+# The conditional LayerNorm's kernels (ops/norm.py) at every conditional
+# norm's shape of ScOT-B and ScOT-L at 128 x 128, (C, rows an image, NHWC):
+# the block norms of the four stages (the embedding, merge and expand norms
+# share their shapes) and the ConvNeXt skips' NHWC maps; then rows an image
+# that end in a short tile (stage 3 at 64 x 64: 4 rows; 40; 7 x 7 and 3 x 3
+# NHWC); three images at lead times 0, 0.37 and 2.5, two rows of image 1
+# constant.
+COND_NORMS = [(96, 1024, False), (192, 256, False), (384, 64, False), (768, 16, False),
+              (96, 1024, True), (192, 256, True), (384, 64, True),
+              (192, 1024, False), (384, 256, False), (768, 64, False), (1536, 16, False),
+              (192, 1024, True), (384, 256, True), (768, 64, True),
+              (768, 4, False), (96, 40, False), (192, 49, True), (384, 9, True)]
+NORM_TIMES = (0.0, 0.37, 2.5)
+
+
+def _cond_norm_case(c, rows, nhwc, dtype):
+    from poseidon_tpu_torch.models.layers import ConditionalLayerNorm
+
+    g = torch.Generator().manual_seed(c + rows)
+    side = int(rows ** 0.5)
+    shape = (3, side, side, c) if nhwc else (3, rows, c)
+    x = 3 * torch.randn(shape, generator=g) + 1
+    x.view(3, rows, c)[1, :2] = 0.3
+    dy = torch.randn(shape, generator=g)
+    m = ConditionalLayerNorm(c)
+    with torch.no_grad():
+        for p in m.parameters():
+            p.copy_(torch.randn(p.shape, generator=g))
+        m.weight.bias.add_(1.0)
+    return (x.to("cuda", dtype), torch.tensor(NORM_TIMES).cuda(), dy.to("cuda", dtype),
+            m.cuda())
+
+
+def _norm_maps(m):
+    return m.weight.weight, m.weight.bias, m.bias.weight, m.bias.bias
+
+
+def _close_rounded(out, ref, rows):
+    """Outputs rounded once from fp32 values that differ by the order of fp32
+    sums: in bf16 within one bf16 ulp (2^-7 relative at most), near-zero
+    elements within 1e-3 of the rms; in fp32 within 1e-5 relative L2. The
+    constant rows (``rows``) are held apart in fp32: their variance is the
+    round-off of mean_C x^2 - mu^2 alone (~1e-8 at x = 0.3), which moves
+    rsqrt(v + eps) by ~1e-3 of itself at eps = 1e-5 in either order of sums:
+    relative L2 1e-2 there."""
+    torch.cuda.synchronize()
+    if out.dtype == torch.float32:
+        flat, want = out.reshape(-1, out.shape[-1]), ref.reshape(-1, ref.shape[-1])
+        keep = torch.ones(flat.shape[0], dtype=torch.bool, device=flat.device)
+        keep[rows] = False
+        assert _rel(flat[keep], want[keep]) <= 1e-5
+        assert _rel(flat[rows], want[rows]) <= 1e-2
+        return
+    rms = float(ref.float().pow(2).mean().sqrt())
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(),
+                               rtol=2.0 ** -7, atol=1e-3 * rms)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("c,rows,nhwc", COND_NORMS)
+def test_cond_norm_kernels_match_chain(c, rows, nhwc, dtype):
+    """Forward and every gradient against the chain (``ConditionalLayerNorm``
+    under ``"xla"``) and its autograd on the card. y and dx: see
+    ``_close_rounded``. The four map gradients are fp32 sums of ~10^3
+    products of either sign in another order: relative L2 1e-4."""
+    _needs_card()
+    from poseidon_tpu_torch.ops import norm
+
+    x, t, dy, m = _cond_norm_case(c, rows, nhwc, dtype)
+    maps = _norm_maps(m)
+    outs = []
+    for kernel in (True, False):
+        xr = x.clone().requires_grad_()
+        before = (norm.cond_layer_norm.launches, norm.cond_layer_norm_bwd.launches)
+        y = norm.cond_layer_norm(xr, t, *maps, m.eps) if kernel else m(xr, t)
+        outs.append((y, *torch.autograd.grad(y, [xr, *maps], dy)))
+        after = (norm.cond_layer_norm.launches, norm.cond_layer_norm_bwd.launches)
+        assert after == ((before[0] + 1, before[1] + 1) if kernel else before)
+    (y, dx, *dmaps), (y0, dx0, *dmaps0) = [[a.detach() for a in o] for o in outs]
+    assert y.dtype == dtype and dx.dtype == dtype and torch.isfinite(dx.float()).all()
+    constant = [rows, rows + 1]  # image 1's first two rows
+    _close_rounded(y, y0, constant)
+    _close_rounded(dx, dx0, constant)
+    for name, a, b in zip(("dw_scale", "db_scale", "dw_shift", "db_shift"), dmaps, dmaps0):
+        assert a.shape == b.shape and a.dtype == torch.float32
+        assert _rel(a, b) <= 1e-4, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,rows,nhwc", [COND_NORMS[i] for i in (0, 3, 10, 14, 16)])
+def test_cond_norm_bwd_gives_the_same_bits_twice(c, rows, nhwc):
+    _needs_card()
+    from poseidon_tpu_torch.ops import norm
+
+    x, t, dy, m = _cond_norm_case(c, rows, nhwc, torch.bfloat16)
+    maps = [p.detach() for p in _norm_maps(m)]
+    _, mean, rstd = norm._forward(x, t, *maps, m.eps)
+    first = norm.cond_layer_norm_bwd(x, t, *maps[:2], mean, rstd, dy)
+    second = norm.cond_layer_norm_bwd(x, t, *maps[:2], mean, rstd, dy)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second)), "not bit-identical"
+
+
+@pytest.mark.cuda
+def test_cond_norm_module_takes_the_kernel_or_raises():
+    """Under "pallas" a CUDA x goes to the kernels at any rows an image
+    (equal to the op's output bit for bit), and operands they do not take
+    raise rather than run the chain."""
+    _needs_card()
+    from poseidon_tpu_torch.models.layers import make_norm
+    from poseidon_tpu_torch.ops import norm
+
+    for c, rows, nhwc in COND_NORMS[-4:]:
+        x, t, _, m = _cond_norm_case(c, rows, nhwc, torch.bfloat16)
+        mk = make_norm(True, c, m.eps, torch.bfloat16, "pallas").cuda()
+        mk.load_state_dict(m.state_dict())
+        before = norm.cond_layer_norm.launches
+        y = mk(x, t)
+        assert norm.cond_layer_norm.launches == before + 1
+        assert torch.equal(y, norm.cond_layer_norm(x, t, *_norm_maps(m), m.eps))
+    with pytest.raises(ValueError):
+        mk(x.half(), t)
+
+
+@pytest.mark.cuda
+def test_cond_norm_kernels_do_not_spill():
+    _needs_card()
+    from poseidon_tpu_torch.ops import norm
+
+    info = norm.kernel_info()
+    assert len(info) == 11  # fwd and bwd: bf16 NV 3, 6; fp32 NV 3, 6, 12; the reduce
+    for key, v in info.items():
+        assert v["spill_bytes"] == 0, (key, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", ["B", "L"])
+def test_every_conditional_norm_of_scot_runs_the_kernel(size):
+    """141 conditional norms a ScOT-B or ScOT-L forward (the embedding, two a
+    Swin block, three merges, three expands, six ConvNeXt skips), each one
+    forward launch and, in the backward, one backward call under "pallas";
+    none under "xla"."""
+    _needs_card()
+    import poseidon_tpu_torch as pt
+    from poseidon_tpu_torch import ops
+
+    x = torch.randn(1, 4, 128, 128).cuda()
+    t = torch.tensor([0.5]).cuda()
+    for impl, want in (("pallas", 141), ("xla", 0)):
+        cfg = pt.make_config(size, image_size=128, num_channels=4, num_out_channels=4,
+                             channel_slice_list=(0, 1, 3, 4), use_conditioning=True,
+                             attention_impl=impl)
+        model = pt.build_model(cfg, device="cuda", dtype=torch.bfloat16)
+        ops.reset_launch_counts()
+        model(x, t).sum().backward()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        assert counts["cond_layer_norm_fwd"] == want, (impl, counts)
+        assert counts["cond_layer_norm_bwd"] == want, (impl, counts)
+        del model
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [True, "save_all", "save_dots"])
+def test_remat_modes_through_norm_kernels_match_step_without(mode):
+    """A ScOT-T bf16 step on the kernels, the norms' among them, under each
+    remat mode: the loss equal and every gradient within relative L2 1e-6
+    of the step without checkpointing; the norm kernel runs again in the
+    recompute of ``True`` and ``"save_dots"`` (``"save_all"`` keeps every
+    residual and recomputes nothing)."""
+    _needs_card()
+    import poseidon_tpu_torch as pt
+    from poseidon_tpu_torch.ops import norm
+
+    cfg = pt.make_config("T", image_size=128, num_channels=4, num_out_channels=4,
+                         channel_slice_list=(0, 1, 3, 4), use_conditioning=True,
+                         attention_impl="pallas")
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(4, 4, 128, 128, generator=g).cuda()
+    y = torch.randn(4, 4, 128, 128, generator=g).cuda()
+    t = torch.rand(4, generator=g).cuda()
+    out = {}
+    for remat in (False, mode):
+        model = pt.build_model(cfg, device="cuda", dtype=torch.bfloat16, remat=remat).train()
+        norm.cond_layer_norm.launches = 0
+        loss = pt.scot_loss(model(x, t), y, cfg)
+        loss.backward()
+        torch.cuda.synchronize()
+        out[remat] = (loss.detach(), {k: p.grad for k, p in model.named_parameters()},
+                      norm.cond_layer_norm.launches)
+    (l0, g0, n0), (l1, g1, n1) = out[False], out[mode]
+    assert torch.equal(l1, l0)
+    for k in g0:
+        assert _rel(g1[k], g0[k]) <= 1e-6 or torch.equal(g1[k], g0[k]), k
+    assert n0 > 0 and (n1 == n0 if mode == "save_all" else n1 > n0)

@@ -97,9 +97,12 @@ def _assert_same_state(m1, o1, m2, o2):
 
 def test_replays_equal_eager_capturable_steps():
     _needs_card()
+    from poseidon_tpu_torch import ops
+
     _, model, opt, sched, batches = _setup()
     ref_model, ref_opt, ref_step = _reference()
     before = graph_counts()
+    ops.reset_launch_counts()
     got, want = [], []
     for i in range(5):
         got.append(pt.train_step(model, opt, sched, batches[i % 3], max_grad_norm=CLIP))
@@ -107,6 +110,12 @@ def test_replays_equal_eager_capturable_steps():
     torch.cuda.synchronize()
     assert _delta(before, graph_counts()) == {"captures": 1, "replays": 4, "first": 1,
                                               "generator": 5}
+    # The conditional norms run their kernels, on both sides: ten steps'
+    # worth, the replays' counted from the capture.
+    counts = ops.launch_counts()
+    assert counts["cond_layer_norm_fwd"] > 0
+    assert counts["cond_layer_norm_fwd"] == counts["cond_layer_norm_bwd"]
+    assert counts["cond_layer_norm_fwd"] % 10 == 0
     for i, (g, w) in enumerate(zip(got, want)):
         assert torch.equal(g["loss"], w["loss"]), i
         assert torch.equal(g["grad_norm"], w["grad_norm"]), i
