@@ -27,7 +27,10 @@ Phases, one JSON line each (any failure ends the run with a non-zero exit):
 4. profile: torch.profiler over one kernel-path forward (device busy time
    against the unprofiled forward time, the kernels that take the most);
 5. rollout: autoregressive_rollout with ar_steps=4 on the same model,
-   launches counted the same way;
+   launches counted the same way (its forwards replay the model's CUDA
+   graph, whose replays add the launches their capture counted), and the
+   forward graph's captures, replays and eager calls in it: no capture and
+   no eager call, every step a replay of the graph the model phase took;
 6. backward kernels: each backward kernel against its plain version on the
    card, bf16, at every ScOT-B, ScOT-L and ScOT-T batch-32 shape (the
    attention's also at T = 49), with the max abs
@@ -140,6 +143,7 @@ Phases, one JSON line each (any failure ends the run with a non-zero exit):
     python3 chip_smoke.py --phase data_parallel   # phase 25 alone
     python3 chip_smoke.py --phase bench           # phase 26 alone
     python3 chip_smoke.py --phase cond_norm       # the norm kernels of phase 9 alone
+    python3 chip_smoke.py --phase rollout         # phases 3 and 5 alone
 
 runs one phase alone, after the cards' line and the build of the sources
 it runs; with four cards the data parallel phase adds
@@ -1533,8 +1537,9 @@ def plain_twin(pt, model):
 
 
 def phase_rollout(pt, model, x, t, per_forward, card, name="rollout", tol=None):
-    """autoregressive_rollout with ar_steps=4, launches counted; with ``tol``,
-    held to the plain path's rollout on the same weights (relative L2)."""
+    """autoregressive_rollout with ar_steps=4, launches counted, every
+    forward a replay of the model's CUDA graph; with ``tol``, held to the
+    plain path's rollout on the same weights (relative L2)."""
     steps = 4
 
     def rollout(m):
@@ -1543,19 +1548,29 @@ def phase_rollout(pt, model, x, t, per_forward, card, name="rollout", tol=None):
 
     with torch.no_grad():
         reset_counts()
+        graphs = pt.tracing.forward_graph_counts()
         y = rollout(model)
         torch.cuda.synchronize()
         counts = read_counts()
+        after = pt.tracing.forward_graph_counts()
         roll_ms = host_ms(lambda: rollout(model), iters=3, warmup=1)
         rel = None
         if tol is not None:
             y_plain = rollout(plain_twin(pt, model).eval())
             rel = float((y.float() - y_plain.float()).norm() / y_plain.float().norm())
+    graphs = {"captures": after["captures"] - graphs["captures"],
+              "replays": after["replays"] - graphs["replays"],
+              "eager": {r: n - graphs["eager"][r] for r, n in after["eager"].items()
+                        if n != graphs["eager"][r]}}
+    # The model phase's forwards captured the model at this key already:
+    # every step of the rollout replays it.
     ok = (tuple(y.shape) == (BATCH, 4, 128, 128) and bool(torch.isfinite(y).all())
           and counts == {k: steps * v for k, v in per_forward.items()}
+          and graphs == {"captures": 0, "replays": steps, "eager": {}}
           and (tol is None or rel <= tol))
     emit({"phase": name, "ar_steps": steps, "batch": BATCH, "rollout_ms": roll_ms,
           "final_rms": float(y.float().pow(2).mean().sqrt()), "launches": counts,
+          "forward_graph": graphs,
           **({"rel_l2_vs_plain_path": rel, "tol": tol} if tol is not None else {}),
           "ok": ok, "card": card})
     if not ok:
@@ -3256,9 +3271,9 @@ DP_SOURCES = ("window_attention", "window_attention_bwd", "mlp", "mlp_bwd", "con
 
 
 def phase_dp_environment(build, sources=DP_SOURCES):
-    """``--phase data_parallel``, ``bench`` or ``cond_norm``: the cards (name
-    and power limit, and how they are linked) and the build of ``sources``
-    (by default those the bf16 train step runs)."""
+    """``--phase data_parallel``, ``bench``, ``cond_norm`` or ``rollout``: the
+    cards (name and power limit, and how they are linked) and the build of
+    ``sources`` (by default those the bf16 train step runs)."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True, text=True,
@@ -3282,8 +3297,9 @@ def main(argv) -> int:
         dp_worker(int(argv[1]), int(argv[2]), argv[3])
         return 0
     if argv not in ([], ["--phase", "data_parallel"], ["--phase", "bench"],
-                    ["--phase", "cond_norm"]):
-        print("usage: chip_smoke.py [--phase data_parallel|bench|cond_norm]", file=sys.stderr)
+                    ["--phase", "cond_norm"], ["--phase", "rollout"]):
+        print("usage: chip_smoke.py [--phase data_parallel|bench|cond_norm|rollout]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing run", file=sys.stderr)
@@ -3299,6 +3315,9 @@ def main(argv) -> int:
                                     else DP_SOURCES)
         if argv[1] == "bench":
             phase_bench(card)
+        elif argv[1] == "rollout":
+            model, x, t, per_forward, _ = phase_model(pt, wa_mod, mlp_op, attn_mod, card)
+            phase_rollout(pt, model, x, t, per_forward, card)
         elif argv[1] == "cond_norm":
             phase_cond_norm_kernels(pt, bound_ms, card)
         else:

@@ -16,6 +16,8 @@ neural operator with a U-Net encoder/decoder, mirroring
   modes; see :func:`run_block`.
 - :func:`forward_with_intermediates`: the prediction with every stage
   output and every block's attention probabilities.
+- ``ScOT.forward`` replays a CUDA graph of the forward on the calls without
+  autograd that allow it (``forward_graph.py``).
 
 Module and parameter names follow the reference PyTorch state dict
 (``embeddings``, ``encoder.layers.{i}``, ``decoder.layers.{k}`` in execution
@@ -39,8 +41,9 @@ import torch.utils.checkpoint as tuc
 
 from ..config import ScOTConfig
 from ..ops.mlp import fused_mlp, mlp_cln, use_fused_tail
-from ..tracing import span
+from ..tracing import count_forward, span
 from ..utils.device import resolve_device
+from . import forward_graph
 from .attention import (
     WindowAttention,
     shifted_window_mask,
@@ -453,9 +456,33 @@ class ScOT(nn.Module):
         self.patch_recovery = PatchRecovery(cfg.patch_size, cfg.embed_dim,
                                             cfg.num_out_channels, cfg.grid_size, dtype)
 
+    def train(self, mode: bool = True) -> "ScOT":
+        """``nn.Module.train``; a change of mode also releases the forward's
+        CUDA graph, whose key holds the mode, so that training after an
+        evaluation does not keep the graph's pool."""
+        if mode != self.training:
+            forward_graph.release(self)
+        return super().train(mode)
+
     def forward(self, pixel_values: torch.Tensor, time: Optional[torch.Tensor] = None,
                 bool_masked_pos: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """On CUDA, a call without autograd that draws no masks replays a
+        CUDA graph of :meth:`eager_forward` (``forward_graph.py``: the first
+        call with a new input layout, model state or mode runs eagerly, the
+        second in a row captures, later ones replay); every other call runs
+        :meth:`eager_forward`. ``tracing.forward_graph_counts()`` counts
+        both."""
+        reason = forward_graph.eager_reason(self, pixel_values, time, bool_masked_pos)
+        if reason is None:
+            return forward_graph.graphed_forward(self, pixel_values, time, self.eager_forward)
+        count_forward("eager." + reason)
+        return self.eager_forward(pixel_values, time, bool_masked_pos, generator)
+
+    def eager_forward(self, pixel_values: torch.Tensor, time: Optional[torch.Tensor] = None,
+                      bool_masked_pos: Optional[torch.Tensor] = None,
+                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The forward's body, op by op: what a captured forward replays."""
         cfg, dt = self.config, self.dtype
         b = pixel_values.shape[0]
         if time is None:

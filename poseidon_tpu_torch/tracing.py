@@ -22,10 +22,16 @@ trace charges a backward op to the block part of the forward op with its
 autograd sequence number. A step that replays ``train_step``'s CUDA graph
 (``training/step_graph.py``) runs its work on the device alone: its
 ``scot.train_step`` holds one ``scot.train_step.replay`` and none of the
-phases or block parts.
+phases or block parts. So does a ScOT forward that replays its own graph
+(``models/forward_graph.py``: on CUDA, without autograd, in eval mode or at
+zero dropout, at the configured image size): one ``scot.forward.replay``
+and no block parts, inside ``scot.rollout`` where the rollout calls it. A
+forward's graph keeps its memory pool reserved until the model changes
+mode or is deleted.
 
 :func:`graph_counts` says how ``train_step`` ran in this process: the
 graph's captures and replays, and the eager steps by reason.
+:func:`forward_graph_counts` says the same of ``ScOT.forward``.
 """
 
 from __future__ import annotations
@@ -43,6 +49,11 @@ _OFF = contextlib.nullcontext()
 EAGER_REASONS = ("cpu", "group", "loss_fn", "generator", "masks", "capturing", "optimizer",
                  "grads", "first")
 _STEPS: collections.Counter = collections.Counter()
+# Why a ScOT forward ran eagerly, in the order ``forward_graph.eager_reason``
+# tests them; ``first`` is an eager call of a key that is not the graph's.
+FORWARD_EAGER_REASONS = ("cpu", "grad", "masks", "capturing", "masked", "resized",
+                         "intermediates", "collective", "first")
+_FORWARDS: collections.Counter = collections.Counter()
 
 
 def span(name: str):
@@ -64,3 +75,17 @@ def graph_counts() -> Dict[str, object]:
     reason of :data:`EAGER_REASONS`, 0 where none)."""
     return {"captures": _STEPS["captures"], "replays": _STEPS["replays"],
             "eager": {r: _STEPS["eager." + r] for r in EAGER_REASONS}}
+
+
+def count_forward(kind: str) -> None:
+    """Add one to the ScOT forwards of ``kind``: ``captures``, ``replays``
+    or ``eager.<reason>`` (a reason of :data:`FORWARD_EAGER_REASONS`)."""
+    _FORWARDS[kind] += 1
+
+
+def forward_graph_counts() -> Dict[str, object]:
+    """The ScOT forwards since the process started: ``captures`` (a
+    capture's call also replays once), ``replays``, and ``eager`` by reason
+    (every reason of :data:`FORWARD_EAGER_REASONS`, 0 where none)."""
+    return {"captures": _FORWARDS["captures"], "replays": _FORWARDS["replays"],
+            "eager": {r: _FORWARDS["eager." + r] for r in FORWARD_EAGER_REASONS}}

@@ -18,7 +18,8 @@ device LRs, each group's settings, the batch's shapes, dtypes and devices,
 1. makes the optimizer capturable (:func:`make_capturable`: AdamW's step
    counters on the device and each group's LR in a 0-dim device tensor,
    which ``LambdaLR`` then writes with ``fill_``) and takes the step
-   eagerly on the graph's side stream: AdamW's state is created and the
+   eagerly on the device's side stream (``forward_graph.side_stream``,
+   which every graph shares): AdamW's state is created and the
    kernels' first use (build, load, launch attributes) stays out of the
    capture;
 
@@ -37,8 +38,9 @@ and every later call
    the scheduler outside it (a captured ``fill_`` would freeze the LR).
 
 A replay first waits until the replay ``RUN_AHEAD`` calls earlier has ended,
-so the host runs at most that many steps ahead of the card. The loss and
-norm returned are clones, one pair a call. A new key drops the old graph.
+so the host runs at most that many steps ahead of the card (the graph's
+bookkeeping, ``models/forward_graph.py::Graph``, is the forward graph's
+too). The loss and norm returned are clones, one pair a call. A new key drops the old graph.
 The graph lives in a ``WeakKeyDictionary`` keyed by the optimizer and
 holds no reference to it or to the model: deleting the optimizer frees the
 graph and its pool.
@@ -50,17 +52,15 @@ default one.
 
 from __future__ import annotations
 
-import collections
 import itertools
 import weakref
 from typing import Callable, Dict, Mapping, Optional
 
 import torch
 
-from .. import ops
+from ..models import forward_graph
+from ..models.forward_graph import Graph
 from ..tracing import count_step, span
-
-RUN_AHEAD = 2
 
 # ``step(batch, scheduler)``: the step's work on ``batch``; ``scheduler``
 # None leaves the schedule's step to the caller.
@@ -69,9 +69,7 @@ StepFn = Callable[[Mapping[str, torch.Tensor], Optional[object]], Dict[str, torc
 
 def on_cuda(model: torch.nn.Module, batch: Mapping[str, torch.Tensor]) -> bool:
     """The model's first parameter and every tensor of the batch are on CUDA."""
-    first = next(model.parameters(), None)
-    return (first is not None and first.is_cuda
-            and all(v.is_cuda for v in batch.values() if v is not None))
+    return forward_graph.on_cuda(model, *batch.values())
 
 
 def draws_masks(model: torch.nn.Module) -> bool:
@@ -144,48 +142,7 @@ def make_capturable(optimizer: torch.optim.Optimizer, device: torch.device) -> N
             state["step"] = step.to(p.device)
 
 
-class _Graph:
-    """One optimizer's step key, side stream, and once captured its graph,
-    static batch, static outputs, the kernel launches the capture counted
-    and the events of the replays still in flight."""
-
-    def __init__(self, device: torch.device):
-        self.key = None
-        self.stream = torch.cuda.Stream(device)
-        self.graph = None
-        self.static: Dict[str, Optional[torch.Tensor]] = {}
-        self.out: Dict[str, torch.Tensor] = {}
-        self.launches: Dict[str, int] = {}
-        self.pending: collections.deque = collections.deque()
-
-    def capture(self, batch: Mapping[str, torch.Tensor], step: StepFn) -> None:
-        self.static = {k: None if v is None else v.clone() for k, v in batch.items()}
-        before = ops.launch_counts()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=self.stream):
-            self.out = step(self.static, None)
-        after = ops.launch_counts()
-        self.launches = {k: after[k] - before[k] for k in after}
-        self.graph = graph
-        graph.replay()   # the capture's own launches are counted already
-        count_step("captures")
-        count_step("replays")
-
-    def replay(self, batch: Mapping[str, torch.Tensor]) -> None:
-        if len(self.pending) == RUN_AHEAD:
-            self.pending.popleft().synchronize()
-        for k, v in batch.items():
-            if v is not None:
-                self.static[k].copy_(v)
-        self.graph.replay()
-        event = torch.cuda.Event()
-        event.record()
-        self.pending.append(event)
-        ops.add_launch_counts(self.launches)
-        count_step("replays")
-
-
-_GRAPHS: "weakref.WeakKeyDictionary[torch.optim.Optimizer, _Graph]" = weakref.WeakKeyDictionary()
+_GRAPHS: "weakref.WeakKeyDictionary[torch.optim.Optimizer, Graph]" = weakref.WeakKeyDictionary()
 
 
 def graphed_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer, scheduler,
@@ -197,23 +154,19 @@ def graphed_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer, sched
     g = _GRAPHS.get(optimizer)
     if g is None or g.key != key:
         if g is not None:
-            for event in g.pending:   # replays in flight still use the pool it frees
-                event.synchronize()
+            g.drain()   # replays in flight still use the pool it frees
             del _GRAPHS[optimizer]
         device = next(model.parameters()).device
         make_capturable(optimizer, device)
-        g = _Graph(device)
-        g.stream.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(g.stream):
-            out = step(batch, scheduler)
-        torch.cuda.current_stream(device).wait_stream(g.stream)
+        g = Graph(device, count_step)
+        out = g.eager(lambda: step(batch, scheduler))
         g.key = step_key(model, optimizer, batch, max_grad_norm)
         _GRAPHS[optimizer] = g
         count_step("eager.first")
         return out
     if g.graph is None:
         try:
-            g.capture(batch, step)
+            g.capture(batch, lambda static: step(static, None))
         except BaseException:
             _GRAPHS.pop(optimizer, None)
             raise
